@@ -4,18 +4,25 @@
 
 1. Print the card (``nvidia-smi`` name and power limit) and the torch build;
    fail without CUDA. TF32 is off, so fp32 is compared with fp32.
-2. Build the CUDA kernels from ``sudo_rm_rf_tpu_torch/csrc``.
-3. The U-ConvBlock kernel against its plain version at the flagship block
-   shape (Co=256, Ci=512, T=3200, depth 5; B=1, 4, 8) and at a ragged one,
-   within rtol=atol=1e-4; at the flagship shape, time the kernel,
-   ``uconv_block_fma`` and ``uconv_block_reference`` (CUDA events, median of
-   25 after warm-up).
+2. Build the CUDA kernels from ``sudo_rm_rf_tpu_torch/csrc``; print each
+   kernel's registers and spills, and the count of tensor-core instructions
+   (``HGMMA``/``HMMA``) in the GEMM kernels' SASS where ``cuobjdump`` exists
+   (failing if it is 0).
+3. The U-ConvBlock kernel (K1) against its plain version at the flagship
+   block shape (Co=256, Ci=512, T=3200, depth 5; B=1, 4, 8) and at two ragged
+   ones, within rtol=atol=1e-4; two calls on one input must be bit-identical.
+   At the flagship shape, time the kernel, ``uconv_block_fma`` and
+   ``uconv_block_reference`` (CUDA events, median of 25 after warm-up). At
+   B=4: the device time of each of K1's parts (``torch.profiler``), K1's
+   bound, and the ``torch.matmul`` time of the same two products (TF32 off,
+   and labelled, on), a yardstick the port never calls.
 4. The serving path: ``sudo-torch-separate`` with a seeded random Improved
    SuDoRM-RF U16/512 checkpoint on three synthetic 8 kHz wavs (3 s, 10 s,
    25 s), batch 4. Checks the outputs, that the kernel ran 16 times per
    forward batch, and one file against a separation through the plain
-   blocks. Then kernel-vs-plain fidelity of one 4 s bs4 forward (>= 80 dB)
-   and the bs4 fp32 forward time of each block form.
+   blocks. Then kernel-vs-plain fidelity of one 4 s bs4 forward (>= 80 dB),
+   the bs4 fp32 forward time of each block form, and the kernel forward's
+   device time by kernel with the device's idle share.
 5. Print a JSON line of kernel results, then ``{"ok": true, "device": ...}``
    as the last line. Any failure raises and exits non-zero.
 """
@@ -26,6 +33,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -38,11 +46,17 @@ BATCH = 4
 FLAGSHIP = dict(out_channels=256, in_channels=512, num_blocks=16,
                 upsampling_depth=5, enc_kernel_size=21, enc_num_basis=512,
                 num_sources=2)
-# B, Co, Ci, T, depth: the flagship block at batch 1, 4 and 8, and a ragged one
+# B, Co, Ci, T, depth: the flagship block at batch 1, 4 and 8; a ragged one;
+# and one with T % 4 != 0, which takes the kernel's 4-byte load paths
 BLOCK_SHAPES = [(1, 256, 512, 3200, 5), (4, 256, 512, 3200, 5),
-                (8, 256, 512, 3200, 5), (2, 20, 36, 648, 4)]
+                (8, 256, 512, 3200, 5), (2, 20, 36, 648, 4), (2, 70, 100, 334, 2)]
 WAV_SECONDS = (3.0, 10.0, 25.0)
 MIN_FIDELITY_DB = 80.0
+# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
+PEAK_TF32 = 495e12
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+K1_PARTS = ("split", "gemm", "ladder", "fold", "upsum")
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 25) -> float:
@@ -60,6 +74,65 @@ def time_ms(torch, fn, warmup: int = 3, reps: int = 25) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def k1_bound(b, co, ci, t, depth) -> dict:
+    """Least time (ms) the card could take for one K1 call: the larger of its
+    bytes (x in, out, the params, each once) over the memory rate and its
+    operations over the peak of their type. The two GEMMs do 2 * B * Ci * Co
+    * T flops each; K1 takes them in 3xTF32, three TF32 passes on the tensor
+    cores, and ``bound_fp32_simt_ms`` is the same work on the fp32 pipes. The
+    ladder (5 multiply-adds, the fold and PReLU: ~12 flops an output) and the
+    upsample-sum (one multiply-add a level) are fp32."""
+    gemm = 2 * 2 * b * ci * co * t
+    other = b * ci * (12 * sum(t >> k for k in range(depth)) + 2 * depth * t)
+    params = 2 * ci * co + ci * (8 * depth + 5) + co
+    mem = 4 * (2 * b * co * t + params) / PEAK_BYTES
+    ops = 3 * gemm / PEAK_TF32 + other / PEAK_FP32
+    return dict(bound_ms=1e3 * max(ops, mem), bound_by="operations" if ops >= mem else "bytes",
+                bound_fp32_simt_ms=1e3 * max((gemm + other) / PEAK_FP32, mem))
+
+
+def device_ms_by_kernel(torch, fn, calls: int) -> dict:
+    """Device time per call of fn, summed by K1 part (``<part>_kernel``) and
+    "other", from ``torch.profiler``; empty if the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            m = re.search(r"(%s)_kernel" % "|".join(K1_PARTS), e.key)
+            name = m.group(1) if m else "other"
+            out[name] = out.get(name, 0.0) + us / 1e3 / calls
+    return out
+
+
+def tensor_core_instructions(lib) -> int | None:
+    """HGMMA/HMMA instructions in the SASS of the GEMM kernels of the built
+    library, or None where ``cuobjdump`` is absent."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    count, function = 0, ""
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            function = m.group(1)
+        elif "gemm_kernel" in function and re.search(r"\bH(G)?MMA\b", line):
+            count += 1
+    return count
 
 
 def block_params(torch, depth, ci, co, seed):
@@ -127,10 +200,19 @@ def main() -> int:
     if log.exists():  # registers, shared memory and spills of each kernel
         name = None
         for line in log.read_text().splitlines():
-            m = re.search(r"Compiling entry function .*?([a-z]+_kernel)E", line)
-            name = m.group(1) if m else name
+            m = re.search(r"Compiling entry function .*?([a-z]+_kernel)((?:L[a-z]\d+E|I)*)", line)
+            if m:  # template arguments, as in gemm_kernel<2,1,1>
+                args = re.findall(r"L[a-z](\d+)E", m.group(2))
+                name = m.group(1) + (f"<{','.join(args)}>" if args else "")
             if "Used" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    hmma = tensor_core_instructions(_build.library_path())
+    if hmma is None:
+        print("tensor-core instructions in gemm_kernel SASS: not available (no cuobjdump)")
+    else:
+        print(f"tensor-core instructions (HGMMA/HMMA) in gemm_kernel SASS: {hmma}")
+        if hmma == 0:
+            raise RuntimeError("the GEMM kernels hold no tensor-core instruction")
 
     # 3. the kernel against its plain version
     kernel_row = {}
@@ -145,6 +227,8 @@ def main() -> int:
         print(f"K1 {(b, co, ci, t, depth)}: max_abs_err {err:.3e} "
               f"(relative to max |plain| {rel:.3e})")
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        if not torch.equal(got, U.fused_uconv_block(x, p, depth)):
+            raise RuntimeError(f"K1 {(b, co, ci, t, depth)}: two calls differ")
         if (co, ci, t, depth) == (256, 512, 3200, 5):
             ms = {name: time_ms(torch, lambda f=f: f(x, p, depth)) for name, f in (
                 ("kernel", U.fused_uconv_block), ("fma", U.uconv_block_fma),
@@ -152,7 +236,28 @@ def main() -> int:
             print(f"K1 flagship B={b} ms (median of 25): kernel {ms['kernel']:.4f} "
                   f"fma {ms['fma']:.4f} plain {ms['plain']:.4f}")
             if b == BATCH:  # the serving path's shape
-                kernel_row = dict(max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"])
+                kernel_row = dict(max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
+                                  **k1_bound(b, co, ci, t, depth))
+                parts = device_ms_by_kernel(torch, lambda: U.fused_uconv_block(x, p, depth), 20)
+                print("K1 B=4 device ms per call by part (torch.profiler, 20 calls): "
+                      + (", ".join(f"{k} {parts[k]:.4f}" for k in K1_PARTS if k in parts)
+                         or "not measured (no device time in the trace)"))
+                acc_in = torch.randn(b, ci, t, generator=torch.Generator().manual_seed(2)).cuda()
+                two = lambda: (torch.matmul(p["proj_w"], x), torch.matmul(p["res_w"], acc_in))
+                lib_ms = time_ms(torch, two)
+                torch.backends.cuda.matmul.allow_tf32 = True
+                lib_tf32_ms = time_ms(torch, two)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                print(f"K1 B=4 yardstick, torch.matmul of the same two products: fp32 "
+                      f"{lib_ms:.4f} ms, TF32 (one pass, ~3 digits) {lib_tf32_ms:.4f} ms")
+                print(f"K1 B=4 bound {kernel_row['bound_ms']:.4f} ms (3xTF32 tensor cores, "
+                      f"{kernel_row['bound_by']}; share {kernel_row['bound_ms'] / ms['kernel']:.1%}), "
+                      f"{kernel_row['bound_fp32_simt_ms']:.4f} ms on the fp32 pipes (share "
+                      f"{kernel_row['bound_fp32_simt_ms'] / ms['kernel']:.1%})")
+                kernel_row.update(library_ms=lib_ms, library_tf32_ms=lib_tf32_ms,
+                                  library_call="torch.matmul of the proj and res products",
+                                  parts_ms={k: parts.get(k) for k in K1_PARTS},
+                                  bit_identical=True, tensor_core_instructions=hmma)
 
     # 4. the serving path through the CLI
     chunk = int(CHUNK_SECONDS * FS)
@@ -226,18 +331,27 @@ def main() -> int:
         if not fid >= MIN_FIDELITY_DB:
             raise RuntimeError(f"fidelity {fid:.2f} dB < {MIN_FIDELITY_DB} dB")
         audio_s = BATCH * CHUNK_SECONDS
+        fwd_ms = {}
         for impl in ("kernel", "fma", "xla"):
             torch.cuda.reset_peak_memory_stats()
             ms = time_ms(torch, lambda i=impl: improved_forward_fast(model, x, impl=i), reps=20)
+            fwd_ms[impl] = ms
             peak = torch.cuda.max_memory_allocated() / 2**20
             print(f"U16/512 bs{BATCH} fp32 forward impl={impl}: {ms:.3f} ms, "
                   f"{audio_s / (ms / 1e3):.1f} audio-s/s, peak {peak:.0f} MiB")
+        by_kernel = device_ms_by_kernel(
+            torch, lambda: improved_forward_fast(model, x, impl="kernel"), 5)
+        busy = sum(by_kernel.values())
+        print(f"U16/512 bs{BATCH} kernel forward device ms by kernel (torch.profiler, 5 "
+              f"forwards): " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(by_kernel.items()))
+              + f"; busy {busy:.3f} of {fwd_ms['kernel']:.3f} ms, idle "
+              f"{1 - busy / fwd_ms['kernel']:.1%}")
 
     print(json.dumps({"kernels": [{
         "name": "fused_uconv_block", "route": "cuda",
         "source": "sudo_rm_rf_tpu_torch/csrc/uconv.cu",
         "replaces": "sudo_rm_rf_tpu/ops/pallas/uconv.py:370",
-        "launches": launches, **kernel_row,
+        "launches": launches, "launches_per_forward": FLAGSHIP["num_blocks"], **kernel_row,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,8 +43,8 @@ def main(argv=None):
 
     import torch
 
-    from sudo_rm_rf_tpu.convert.torch_checkpoint import load_pt_file
     from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import load_pt_file
     from sudo_rm_rf_tpu_torch.inference import separate_file
     from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
 

@@ -7,9 +7,9 @@ see :func:`uconv_block_reference`) and (B, C, T) layout:
 * :func:`uconv_block_fma` — shifted multiply-adds with each GlobLN folded into
   per-channel (a, b) constants, autograd-able;
 * :func:`uconv_block_levelwise` — the exact decomposition the CUDA kernel
-  carries out (per-tile statistics merged with Chan's formula, level-wise
-  folding, the closed-form upsample-sum), in plain torch, so the CPU tests
-  check the kernel's algorithm;
+  carries out (3xTF32 GEMMs, per-tile statistics merged with Chan's formula,
+  level-wise folding, the closed-form upsample-sum with per-chunk
+  statistics), in plain torch, so the CPU tests check the kernel's algorithm;
 * :func:`fused_uconv_block` — the wrapper of the hand-written Hopper kernel
   ``csrc/uconv.cu`` (forward only).
 """
@@ -25,9 +25,14 @@ from sudo_rm_rf_tpu_torch.ops.norm import glob_ln
 from sudo_rm_rf_tpu_torch.ops.resample import upsample_nearest_2x
 
 EPS = 1e-8
-# GEMM output tile of the kernel (BM x BN in csrc/uconv.cu); the proj GEMM's
-# GlobLN partial statistics are taken per tile of this shape.
-GEMM_TILE = (128, 64)
+# (channels, time steps) of the sub-tile whose GlobLN moments the kernel's
+# proj GEMM writes (SUB x SUB in csrc/uconv.cu). The GEMM computes out^T:
+# each warpgroup holds 64 time rows x 64 channels per accumulator, one
+# sub-tile, whatever the block's width.
+GEMM_TILE = (64, 64)
+# outputs of the upsample-sum whose exact (mean, M2) one thread takes before
+# merging (CHUNK in csrc/uconv.cu)
+UPSUM_CHUNK = 8
 
 
 def _prelu(v, slope):
@@ -132,6 +137,22 @@ def uconv_block_fma(x, params, depth: int):
     return out + x
 
 
+def tf32_round(v):
+    """Round fp32 to the nearest TF32 value (10-bit mantissa), ties away from
+    zero: ``cvt.rna.tf32.f32`` on the int32 view."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_3xtf32(w, x):
+    """w @ x as the kernel's tensor cores take it: each operand split into
+    hi = tf32(v) and lo = tf32(v - hi), and lo*hi + hi*lo + hi*hi summed in
+    fp32 (the lo*lo term is dropped)."""
+    w_hi, x_hi = tf32_round(w), tf32_round(x)
+    w_lo, x_lo = tf32_round(w - w_hi), tf32_round(x - x_hi)
+    return (torch.matmul(w_hi, x_lo) + torch.matmul(w_lo, x_hi)) + torch.matmul(w_hi, x_hi)
+
+
 def _tile_moments(v, rows: int, cols: int):
     """Per-tile (count, mean, M2) of v (B, C, T) cut into (rows, cols) tiles,
     ragged edges included — the partials the kernel's blocks write."""
@@ -164,14 +185,15 @@ def _fold(v, gamma, beta, rows: int, cols: int):
 def uconv_block_levelwise(x, params, depth: int):
     """The CUDA kernel's decomposition of the block, in plain torch.
 
-    proj GEMM (partials per GEMM tile) -> per level k: input transform (level
-    0: prelu(a*y + b); k >= 1: a_{k-1}*raw_{k-1} + b_{k-1}), depthwise k=5
-    conv y[t] = sum_j w[j] x[s*t + j - 2], raw_k and per-row partials ->
-    acc = sum_k (a_k raw_k[t >> k] + b_k) with per-row partials -> res GEMM
-    over prelu(a_f*acc + b_f) plus bias and residual.
+    proj GEMM in 3xTF32 (partials per ``GEMM_TILE`` sub-tile) -> per level
+    k: input transform (level 0: prelu(a*y + b); k >= 1: a_{k-1}*raw_{k-1} +
+    b_{k-1}), depthwise k=5 conv y[t] = sum_j w[j] x[s*t + j - 2], raw_k and
+    per-row partials -> acc = sum_k (a_k raw_k[t >> k] + b_k) with partials
+    per ``UPSUM_CHUNK`` outputs -> res GEMM in 3xTF32 over prelu(a_f*acc +
+    b_f) plus bias and residual.
     """
     t = x.shape[-1]
-    y = torch.matmul(params["proj_w"], x) + params["proj_b"][None, :, None]
+    y = matmul_3xtf32(params["proj_w"], x) + params["proj_b"][None, :, None]
     a, b = _fold(y, params["proj_g"], params["proj_beta"], *GEMM_TILE)
     cur = _prelu(a * y + b, params["proj_slope"])
     raw, folds = [], []
@@ -191,8 +213,8 @@ def uconv_block_levelwise(x, params, depth: int):
         (fa * r + fb).repeat_interleave(2**k, dim=-1)[..., :t]
         for k, (r, (fa, fb)) in enumerate(zip(raw, folds))
     )
-    a, b = _fold(acc, params["final_g"], params["final_beta"], 1, t)
-    out = torch.matmul(params["res_w"], _prelu(a * acc + b, params["final_slope"]))
+    a, b = _fold(acc, params["final_g"], params["final_beta"], 1, UPSUM_CHUNK)
+    out = matmul_3xtf32(params["res_w"], _prelu(a * acc + b, params["final_slope"]))
     return out + params["res_b"][None, :, None] + x
 
 

@@ -97,26 +97,46 @@ def test_overlap_and_add(step):
     _close(tops.overlap_and_add(torch.from_numpy(x), step).numpy(), want)
 
 
-def test_port_imports_no_jax_and_never_falls_back():
-    """In a fresh interpreter, the whole port imports and runs a toy forward
-    without JAX; asking for CUDA where there is none raises."""
+def test_port_imports_no_jax_and_never_falls_back(tmp_path):
+    """In a fresh interpreter, the whole port imports, runs a toy forward and
+    separates a tiny wav through ``sudo-torch-separate`` on the CPU without
+    importing JAX or any module of the JAX package; asking for CUDA where
+    there is none raises."""
     code = textwrap.dedent("""
-        import sys
+        import os, sys
+        import numpy as np
         import torch
+        from scipy.io import wavfile
         import sudo_rm_rf_tpu_torch
         from sudo_rm_rf_tpu_torch import convert, data, inference, models, ops
         from sudo_rm_rf_tpu_torch.cli import separate
+        from sudo_rm_rf_tpu_torch.convert import jax_params, torch_checkpoint
+        from sudo_rm_rf_tpu_torch.data import base
+        from sudo_rm_rf_tpu_torch.inference import overlap_add
+        from sudo_rm_rf_tpu_torch.models import fast_inference, improved_sudormrf, layers
         from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
-        from sudo_rm_rf_tpu_torch.ops import uconv
+        from sudo_rm_rf_tpu_torch.ops import _build, conv, frame, norm, pad, resample, uconv
 
-        m = models.get_model("relu", out_channels=8, in_channels=16, num_blocks=1,
-                             upsampling_depth=2, enc_num_basis=8)
+        hp = dict(out_channels=8, in_channels=16, num_blocks=1, upsampling_depth=2,
+                  enc_num_basis=8)
+        m = models.get_model("relu", **hp)
         x = torch.randn(1, 1, 100, generator=torch.Generator().manual_seed(0))
         for impl in ("kernel", "fma", "xla"):
             assert improved_forward_fast(m, x, impl=impl).shape == (1, 2, 100)
+        tmp = sys.argv[1]
+        ckpt, wav = os.path.join(tmp, "m.pt"), os.path.join(tmp, "mix.wav")
+        torch.save(m.state_dict(), ckpt)
+        wavfile.write(wav, 8000, (np.random.default_rng(0).standard_normal(900)
+                                  * 3000).astype(np.int16))
+        argv = ["--checkpoint", ckpt, "--input", wav, "--out_dir", tmp,
+                "--device", "cpu", "--chunk_seconds", "0.05", "--batch_chunks", "2"]
+        for k, v in hp.items():
+            argv += [f"--{k}", str(v)]
+        assert separate.main(argv) == 0
+        assert os.path.exists(os.path.join(tmp, "mix_s2.wav"))
         assert uconv.fused_uconv_block.launches == 0
-        jax_mods = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
-        assert not jax_mods, jax_mods
+        foreign = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "sudo_rm_rf_tpu"))
+        assert not foreign, foreign
         if not torch.cuda.is_available():
             for call in (
                 lambda: models.get_model("relu", num_blocks=1, device="cuda"),
@@ -131,6 +151,35 @@ def test_port_imports_no_jax_and_never_falls_back():
         print("PORT-OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and "PORT-OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("saved", ["state_dict", "module"])
+def test_torch_checkpoint_copy_matches_jax_package(tmp_path, saved):
+    """The port's own copy of the checkpoint renaming and ``.pt`` loader
+    gives what the JAX package's ``convert.torch_checkpoint`` gives."""
+    from sudo_rm_rf_tpu.convert import torch_checkpoint as jtc
+    from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.convert import torch_checkpoint as ttc
+
+    model = models.get_model("relu", out_channels=8, in_channels=16, num_blocks=2,
+                             upsampling_depth=2, enc_num_basis=8,
+                             generator=torch.Generator().manual_seed(0))
+    path = str(tmp_path / "m.pt")
+    torch.save(model.state_dict() if saved == "state_dict" else model, path)
+    sd, attrs = ttc.load_pt_file(path)
+    jsd, jattrs = jtc.load_pt_file(path)
+    assert attrs == jattrs and list(sd) == list(jsd)
+    for key in sd:
+        assert torch.equal(sd[key], jsd[key]), key
+        assert ttc.torch_key_to_flax_path(key) == jtc.torch_key_to_flax_path(key)
+    tree = jtc.state_dict_to_params(sd)
+    got = ttc.params_to_state_dict(tree, sd.keys())
+    want = jtc.params_to_state_dict(tree, target_keys=sd.keys(), to_torch=True)
+    assert sorted(got) == sorted(want)
+    for key in got:
+        assert torch.equal(got[key], want[key]), key
+    with pytest.raises(ValueError, match="no torch key"):
+        ttc.params_to_state_dict(tree, list(sd)[1:])

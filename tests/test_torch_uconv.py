@@ -22,9 +22,14 @@ from sudo_rm_rf_tpu.ops.pallas import uconv as J
 from sudo_rm_rf_tpu_torch.models.improved_sudormrf import UConvBlock
 from sudo_rm_rf_tpu_torch.ops import uconv as U
 
-# (depth, T, Ci, Co): the JAX kernel tests' shapes, and a ragged one whose
-# channel counts fit no GEMM tile and whose deepest level has odd length
-SHAPES = [(4, 512, 64, 32), (5, 640, 64, 32), (4, 648, 36, 20)]
+# (depth, T, Ci, Co): the JAX kernel tests' shapes; a ragged one whose
+# channel counts fit no GEMM tile and whose deepest level has odd length; one
+# whose res GEMM reduces over K = Ci = 512, as the flagship's does, at a short
+# T; and one whose Ci, Co and T fit none of the kernel's tiles (64-channel
+# sub-tiles, 128-step time tiles, 32-deep k stages, 8-output upsum chunks),
+# with T % 4 != 0, so the kernel takes its 4-byte load paths
+SHAPES = [(4, 512, 64, 32), (5, 640, 64, 32), (4, 648, 36, 20),
+          (3, 128, 512, 256), (2, 334, 100, 70)]
 PORT_FORMS = {
     "reference": U.uconv_block_reference,
     "fma": U.uconv_block_fma,
@@ -89,7 +94,7 @@ def test_levelwise_fold_equals_glob_ln():
     g = torch.from_numpy(rng.uniform(0.5, 1.5, 36).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal(36).astype(np.float32))
     want = glob_ln(v, g, b)
-    for rows, cols in [(128, 64), (1, 81), (16, 32)]:
+    for rows, cols in [(128, 64), (1, 81), (16, 32), U.GEMM_TILE, (1, U.UPSUM_CHUNK)]:
         a, sh = U._fold(v, g, b, rows, cols)
         torch.testing.assert_close(a * v + sh, want, rtol=1e-5, atol=1e-5)
 
@@ -132,3 +137,25 @@ def test_fused_uconv_block_rejects_other_devices():
     tp = {k: torch.from_numpy(np.asarray(v)).to("meta") for k, v in params.items()}
     with pytest.raises(ValueError, match="unsupported device"):
         U.fused_uconv_block(torch.from_numpy(x).to("meta"), tp, 4)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """``tf32_round`` keeps 10 mantissa bits, rounding to nearest with ties
+    away from zero (cvt.rna); the 3xTF32 product is fp32-accurate."""
+    ulp = 2.0**-10
+    v = torch.tensor([1.0, 1 + ulp / 2, 1 + ulp / 2 - 2**-23, 1 + 1.5 * ulp,
+                      -(1 + ulp / 2), 3.0, 2.0**-130], dtype=torch.float32)
+    want = torch.tensor([1.0, 1 + ulp, 1.0, 1 + 2 * ulp, -(1 + ulp), 3.0, 2.0**-130],
+                        dtype=torch.float32)
+    torch.testing.assert_close(U.tf32_round(v), want, rtol=0, atol=0)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal(10_000).astype(np.float32))
+    r = U.tf32_round(x)
+    assert ((r.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((r - x).abs() <= x.abs() * 2.0**-11).all()
+    w = torch.from_numpy(rng.standard_normal((48, 512)).astype(np.float32))
+    a = torch.from_numpy(rng.standard_normal((512, 40)).astype(np.float32))
+    want = (w.double() @ a.double()).float()
+    torch.testing.assert_close(U.matmul_3xtf32(w, a), want, rtol=1e-5, atol=1e-5)
+    one_pass = (U.tf32_round(w) @ U.tf32_round(a) - want).abs().max()
+    assert (U.matmul_3xtf32(w, a) - want).abs().max() < one_pass / 100
