@@ -23,13 +23,30 @@
    blocks. Then kernel-vs-plain fidelity of one 4 s bs4 forward (>= 80 dB),
    the bs4 fp32 forward time of each block form, and the kernel forward's
    device time by kernel with the device's idle share.
-5. Print a JSON line of kernel results, then ``{"ok": true, "device": ...}``
-   as the last line. Any failure raises and exits non-zero.
+5. The training path: ``sudo-torch-train`` on a WHAM-layout directory of 16
+   train and 8 val synthetic 4 s wavs, U16/512, batch 4, ``block_impl fma``,
+   fp32: 2 epochs (8 steps) saving a checkpoint each epoch, then again with
+   ``--resume`` for a third. Checks that every step's loss is finite, that
+   val SISDRi is printed each epoch, the checkpoint files, that the resumed
+   run starts at epoch 3 with Adam's step at 8, and that training launched
+   K1 0 times (it trains through the fma blocks, as the JAX package does).
+   The trained weights then go through ``sudo-torch-separate`` (K1 launches
+   counted). One train step of the same model on the card and on the CPU,
+   from the same weights, batch and draws: loss and grad norm within 1e-3
+   relative. The median train-step time (CUDA events, 10 steps after 3
+   warm-up) and peak memory of the fma and xla blocks, each in fp32 and
+   bf16, with each step's device busy time, idle share, device launches and
+   top kernels (``torch.profiler``).
+6. Print a JSON line of the training results and one of kernel results, then
+   ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
+   exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import os
 import re
@@ -57,6 +74,10 @@ PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 K1_PARTS = ("split", "gemm", "ladder", "fold", "upsum")
+TRAIN_FILES, VAL_FILES = 16, 8
+TRAIN_EPOCHS = 2
+STEP_WARMUP, STEP_REPS = 3, 10
+MAX_CARD_CPU_REL = 1e-3
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 25) -> float:
@@ -93,9 +114,12 @@ def k1_bound(b, co, ci, t, depth) -> dict:
                 bound_fp32_simt_ms=1e3 * max((gemm + other) / PEAK_FP32, mem))
 
 
-def device_ms_by_kernel(torch, fn, calls: int) -> dict:
+def device_ms_by_kernel(torch, fn, calls: int, by_part: bool = True,
+                        launches: dict | None = None) -> dict:
     """Device time per call of fn, summed by K1 part (``<part>_kernel``) and
-    "other", from ``torch.profiler``; empty if the trace holds no device time."""
+    "other", or by kernel name, from ``torch.profiler``; empty if the trace
+    holds no device time. ``launches``, if given, gets the device launches
+    per call under the same names."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -111,8 +135,10 @@ def device_ms_by_kernel(torch, fn, calls: int) -> dict:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
             m = re.search(r"(%s)_kernel" % "|".join(K1_PARTS), e.key)
-            name = m.group(1) if m else "other"
+            name = (m.group(1) if m else "other") if by_part else e.key
             out[name] = out.get(name, 0.0) + us / 1e3 / calls
+            if launches is not None:
+                launches[name] = launches.get(name, 0.0) + e.count / calls
     return out
 
 
@@ -162,6 +188,198 @@ def n_forward_batches(n_samples: int, chunk: int, batch: int) -> int:
 def fidelity_db(np, ref, est) -> float:
     err = float(((ref - est) ** 2).sum())
     return float("inf") if err == 0.0 else 10 * np.log10(float((ref**2).sum()) / err)
+
+
+class _Tee(io.TextIOBase):
+    """Writes through to a stream and keeps a copy of what it wrote."""
+
+    def __init__(self, stream):
+        self.stream, self.copy = stream, io.StringIO()
+
+    def write(self, s):
+        self.stream.write(s)
+        return self.copy.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def run_cli(main_fn, argv) -> str:
+    """Run a CLI's ``main(argv)``, showing and returning its standard output."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = main_fn(argv)
+    if rc != 0:
+        raise RuntimeError(f"{main_fn.__module__} returned {rc}")
+    return tee.copy.getvalue()
+
+
+def si_sdr_db(np, est, ref) -> float:
+    est, ref = est - est.mean(), ref - ref.mean()
+    proj = (est @ ref) / (ref @ ref) * ref
+    return float(10 * np.log10((proj @ proj) / ((est - proj) @ (est - proj))))
+
+
+def train_phase(torch, np, tmp: str, hp: dict, device: str = "cuda",
+                reps: int = STEP_REPS) -> dict:
+    """Phase 5: train, resume, serve the trained weights, hold one card step
+    to the CPU and time the step. Returns the numbers for the JSON line."""
+    from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.cli.separate import main as separate_main
+    from sudo_rm_rf_tpu_torch.cli.train import main as train_main
+    from sudo_rm_rf_tpu_torch.data.base import read_wav
+    from sudo_rm_rf_tpu_torch.data.synthetic import write_wham_corpus
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+    from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig, draw_remix
+
+    t0 = time.perf_counter()
+    root = write_wham_corpus(os.path.join(tmp, "wham"), TRAIN_FILES, VAL_FILES,
+                             CHUNK_SECONDS, FS, seed=0)
+    print(f"train: corpus of {TRAIN_FILES} + {VAL_FILES} wavs of {CHUNK_SECONDS} s "
+          f"in {time.perf_counter() - t0:.1f} s")
+    logs, ckpts = os.path.join(tmp, "logs"), os.path.join(tmp, "ckpt")
+    argv = ["--train", "WHAM", "--val", "WHAM", "--separation_task", "sep_clean",
+            "--model_type", "relu", "-bs", str(BATCH), "--block_impl", "fma",
+            "--audio_timelength", str(CHUNK_SECONDS), "-fs", str(FS), "--n_jobs", "4",
+            "--save_checkpoint_every", "1", "--experiment_name", "smoke", "-elp", logs,
+            "-clp", ckpts, "--wham_root", root, "--device", device]
+    for key in ("out_channels", "in_channels", "num_blocks", "upsampling_depth",
+                "enc_kernel_size", "enc_num_basis"):
+        argv += [f"--{key}", str(hp[key])]
+
+    # the training path, with the kernel counts at 0 just before it
+    U.fused_uconv_block.launches = 0
+    t0 = time.perf_counter()
+    out = run_cli(train_main, argv + ["--n_epochs", str(TRAIN_EPOCHS)])
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out += run_cli(train_main, argv + ["--n_epochs", str(TRAIN_EPOCHS + 1), "--resume"])
+    resume_s = time.perf_counter() - t0
+    train_launches = U.fused_uconv_block.launches
+    print(f"train: {TRAIN_EPOCHS} epochs in {first_s:.1f} s, the resumed epoch in "
+          f"{resume_s:.1f} s (model build, loader and validation included); "
+          f"K1 launches {train_launches}")
+    if train_launches:
+        raise RuntimeError(f"the training path launched K1 {train_launches} times")
+    epochs = re.findall(r"^epoch (\d+)/\d+ tr_loss=(\S+) val_SISDRi=(\S+)", out, re.M)
+    if [int(e) for e, _, _ in epochs] != list(range(1, TRAIN_EPOCHS + 2)):
+        raise RuntimeError(f"epoch lines {epochs}")
+    resumed = re.search(r"resumed from epoch (\d+): step (\d+), Adam step (\d+)", out)
+    steps_per_epoch = TRAIN_FILES // BATCH
+    want = (TRAIN_EPOCHS, TRAIN_EPOCHS * steps_per_epoch, TRAIN_EPOCHS * steps_per_epoch)
+    if resumed is None or tuple(map(int, resumed.groups())) != want:
+        raise RuntimeError(f"resume: {resumed and resumed.group(0)}, want {want}")
+    step_losses = []
+    for e in range(1, TRAIN_EPOCHS + 2):
+        step_losses += np.load(os.path.join(logs, "smoke", "tr_loss", f"epoch_{e}.npy")).tolist()
+    val = [float(v) for _, _, v in epochs]
+    if len(step_losses) != (TRAIN_EPOCHS + 1) * steps_per_epoch or not (
+            np.isfinite(step_losses).all() and np.isfinite(val).all()):
+        raise RuntimeError(f"step losses {step_losses}, val SISDRi {val}")
+    names = os.listdir(os.path.join(ckpts, "smoke"))
+    for e in range(1, TRAIN_EPOCHS + 2):
+        if f"relu_epoch_{e}" not in names:
+            raise RuntimeError(f"no checkpoint relu_epoch_{e} in {sorted(names)}")
+    if not any(n.startswith("best_val_SISDRi") for n in names):
+        raise RuntimeError(f"no best_ checkpoint in {sorted(names)}")
+    blob = torch.load(os.path.join(ckpts, "smoke", f"relu_epoch_{TRAIN_EPOCHS + 1}"),
+                      map_location="cpu", weights_only=True)
+    adam_steps = {int(s["step"]) for s in blob["optimizer"]["state"].values()}
+    if blob["step"] != (TRAIN_EPOCHS + 1) * steps_per_epoch or adam_steps != {blob["step"]}:
+        raise RuntimeError(f"last checkpoint: step {blob['step']}, Adam steps {adam_steps}")
+    print(f"train: step losses {', '.join(f'{v:.3f}' for v in step_losses)}; val SISDRi "
+          f"by epoch {', '.join(f'{v:.3f}' for v in val)} dB")
+
+    # the trained weights through the serving path
+    pt = os.path.join(tmp, "trained.pt")
+    torch.save(blob["model"], pt)
+    cv = os.path.join(root, f"wav{FS // 1000}k", "min", "cv")
+    mix_path = os.path.join(cv, "mix_clean", "utt0000.wav")
+    sep_argv = ["--checkpoint", pt, "--input", mix_path, "--out_dir", os.path.join(tmp, "sep"),
+                "--device", device, "--batch_chunks", str(BATCH), "-fs", str(FS),
+                "--chunk_seconds", str(CHUNK_SECONDS)]
+    for key in ("out_channels", "in_channels", "num_blocks", "upsampling_depth",
+                "enc_kernel_size", "enc_num_basis"):
+        sep_argv += [f"--{key}", str(hp[key])]
+    U.fused_uconv_block.launches = 0
+    run_cli(separate_main, sep_argv)
+    serve_launches = U.fused_uconv_block.launches
+    if device == "cuda" and serve_launches != hp["num_blocks"]:
+        raise RuntimeError(f"serving the trained weights: {serve_launches} K1 launches, "
+                           f"want {hp['num_blocks']}")
+    ests = [read_wav(os.path.join(tmp, "sep", f"utt0000_s{s}.wav"))[1] for s in (1, 2)]
+    refs = [read_wav(os.path.join(cv, d, "utt0000.wav"))[1] for d in ("s1", "s2")]
+    mix = read_wav(mix_path)[1]
+    if not all(e.shape == mix.shape and np.isfinite(e).all() for e in ests):
+        raise RuntimeError("bad separated outputs")
+    best = max(sum(si_sdr_db(np, ests[i], refs[j]) for i, j in zip(p, (0, 1)))
+               for p in ((0, 1), (1, 0))) / 2
+    base = sum(si_sdr_db(np, mix, r) for r in refs) / 2
+    print(f"serve the trained weights: {serve_launches} K1 launches; SI-SDRi of one val "
+          f"file {best - base:.3f} dB")
+
+    # one step, card against CPU, from the same weights, batch and draws
+    sources = np.stack([
+        np.stack([read_wav(os.path.join(root, f"wav{FS // 1000}k", "min", "tr", d,
+                                        f"utt{i:04d}.wav"))[1] for d in ("s1", "s2")])
+        for i in range(BATCH)])
+    draws = draw_remix(torch.Generator().manual_seed(7), BATCH, 2)
+    metrics = {}
+    for dev in (device, "cpu"):
+        model = models.get_model("relu", **hp, block_impl="fma", device=dev)
+        model.load_state_dict(blob["model"])
+        tr = Trainer(model, TrainerConfig())
+        _, m = tr.train_step(tr.init_state(), sources, draws)
+        metrics[dev] = {k: float(v) for k, v in m.items()}
+        del model, tr
+    rel = {k: abs(metrics[device][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    print(f"one step card vs CPU: loss {metrics[device]['loss']:.6f} vs "
+          f"{metrics['cpu']['loss']:.6f} (rel {rel['loss']:.2e}), grad norm "
+          f"{metrics[device]['grad_norm']:.6f} vs {metrics['cpu']['grad_norm']:.6f} "
+          f"(rel {rel['grad_norm']:.2e})")
+    if abs(metrics["cpu"]["loss"]) >= TrainerConfig().loss_clamp:
+        raise RuntimeError("the loss clamp saturated: the comparison would be vacuous")
+    if max(rel.values()) > MAX_CARD_CPU_REL:
+        raise RuntimeError(f"card and CPU steps differ by {rel}")
+
+    # step times, on a batch resident on the card
+    steps = {}
+    if device == "cuda":
+        batch = torch.from_numpy(sources).to(device)
+        audio_s = BATCH * CHUNK_SECONDS
+        for impl in ("fma", "xla"):
+            for dtype in (None, "bfloat16"):
+                model = models.get_model("relu", **hp, block_impl=impl, device=device)
+                model.load_state_dict(blob["model"])
+                tr = Trainer(model, TrainerConfig(compute_dtype=dtype))
+                state, gen = tr.init_state(), torch.Generator().manual_seed(0)
+                step = lambda: tr.train_step(state, batch, draw_remix(gen, BATCH, 2))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = time_ms(torch, step, warmup=STEP_WARMUP, reps=reps)
+                peak = torch.cuda.max_memory_allocated() / 2**20
+                name = f"{impl} {dtype or 'float32'}"
+                row = dict(ms=ms, audio_s_per_s=audio_s / (ms / 1e3), peak_mib=peak)
+                counts = {}
+                by_name = device_ms_by_kernel(torch, step, 3, by_part=False, launches=counts)
+                busy = sum(by_name.values())
+                top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+                row.update(device_busy_ms=busy, idle_share=1 - busy / ms,
+                           device_launches=sum(counts.values()),
+                           top_kernels_ms={k[:80]: v for k, v in top})
+                steps[name] = row
+                print(f"train step U16/512 bs{BATCH} {name}: {ms:.3f} ms (median of {reps}), "
+                      f"{row['audio_s_per_s']:.1f} audio-s/s, peak {peak:.0f} MiB; "
+                      f"torch.profiler over 3 steps: device busy {busy:.3f} ms, idle "
+                      f"{row['idle_share']:.1%}, {row['device_launches']:.0f} device "
+                      f"launches a step; top 6 of {len(by_name)} kernels by device ms: "
+                      + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+                del model, tr, state
+                torch.cuda.empty_cache()
+    return dict(step_losses=step_losses, val_sisdri=val, train_launches=train_launches,
+                serve_launches=serve_launches, served_sisdri_db=best - base,
+                card_vs_cpu=dict(metrics, rel=rel), steps=steps)
 
 
 def main() -> int:
@@ -347,11 +565,17 @@ def main() -> int:
               + f"; busy {busy:.3f} of {fwd_ms['kernel']:.3f} ms, idle "
               f"{1 - busy / fwd_ms['kernel']:.1%}")
 
+    # 5. the training path
+    with tempfile.TemporaryDirectory() as tmp:
+        train = train_phase(torch, np, tmp, FLAGSHIP)
+
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": [{
         "name": "fused_uconv_block", "route": "cuda",
         "source": "sudo_rm_rf_tpu_torch/csrc/uconv.cu",
         "replaces": "sudo_rm_rf_tpu/ops/pallas/uconv.py:370",
-        "launches": launches, "launches_per_forward": FLAGSHIP["num_blocks"], **kernel_row,
+        "launches": launches, "launches_per_forward": FLAGSHIP["num_blocks"],
+        "launches_training_path": train["train_launches"], **kernel_row,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,186 @@
+"""Configuration of the port (counterpart of ``sudo_rm_rf_tpu/config.py``).
+
+The same dataclass tree and the same environment variables for the dataset
+roots, resolved when read:
+
+    SUDO_TPU_WHAM_ROOT, SUDO_TPU_WHAMR_ROOT, SUDO_TPU_FUSS_ROOT,
+    SUDO_TPU_LIBRI2MIX_ROOT, SUDO_TPU_MUSDB_ROOT, SUDO_TPU_MUSDB8K_ROOT,
+    SUDO_TPU_CKPT_DIR, SUDO_TPU_METRICS_DIR
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+def _env(name: str, default: str) -> str:
+    return os.environ.get(name, default)
+
+
+class DataPaths:
+    """Dataset roots, resolved from env vars at access time (so tests and
+    CLI flags can set them after import)."""
+
+    @property
+    def wham_root(self):
+        return _env("SUDO_TPU_WHAM_ROOT", "/mnt/data/wham")
+
+    @property
+    def whamr_root(self):
+        return _env("SUDO_TPU_WHAMR_ROOT", "/mnt/data/whamr")
+
+    @property
+    def fuss_root(self):
+        return _env("SUDO_TPU_FUSS_ROOT", "/mnt/data/fuss")
+
+    @property
+    def libri2mix_root(self):
+        return _env("SUDO_TPU_LIBRI2MIX_ROOT", "/mnt/data/libri_mix/Libri2Mix")
+
+    @property
+    def musdb_root(self):
+        return _env("SUDO_TPU_MUSDB_ROOT", "/mnt/data/musdb")
+
+    @property
+    def musdb8k_root(self):
+        return _env("SUDO_TPU_MUSDB8K_ROOT", "/mnt/data/musdb8k")
+
+    @property
+    def checkpoints(self):
+        return _env("SUDO_TPU_CKPT_DIR", os.path.expanduser("~/sudo_tpu_checkpoints"))
+
+    @property
+    def metrics(self):
+        return _env("SUDO_TPU_METRICS_DIR", os.path.expanduser("~/sudo_tpu_metrics"))
+
+
+paths = DataPaths()
+
+# options of the JAX package that the port does not take yet
+_WAITING = "ROADMAP queue 1, item 5a"
+
+
+@dataclass
+class ModelConfig:
+    """Hyperparameters of the SuDoRM-RF family (the reference CLI's flags)."""
+
+    model_type: str = "relu"
+    out_channels: int = 128
+    in_channels: int = 512
+    num_blocks: int = 16
+    upsampling_depth: int = 5
+    enc_kernel_size: int = 21
+    enc_num_basis: int = 512
+    num_sources: int = 2
+    group_size: int = 16  # groupcomm only
+    in_audio_channels: int = 1
+    # attentive only
+    n_heads: int = 4
+    att_dims: int = 256
+    att_dropout: float = 0.1
+    # U-ConvBlock form: 'fma' (the training default, as in the JAX
+    # package), 'xla' (plain layers) or 'kernel' (the CUDA kernel, forward
+    # only)
+    block_impl: str = "fma"
+    remat_blocks: bool = False  # waits
+    scan_blocks: bool = False  # attentive only
+
+    def build(self, device=None, generator=None):
+        """The port's model for this config, its params drawn from
+        ``generator`` and placed on ``device``."""
+        from sudo_rm_rf_tpu_torch import models
+
+        if self.remat_blocks:
+            raise NotImplementedError(f"remat_blocks is not ported yet ({_WAITING})")
+        kwargs = dict(
+            out_channels=self.out_channels,
+            in_channels=self.in_channels,
+            num_blocks=self.num_blocks,
+            upsampling_depth=self.upsampling_depth,
+            enc_kernel_size=self.enc_kernel_size,
+            enc_num_basis=self.enc_num_basis,
+            num_sources=self.num_sources,
+        )
+        if self.model_type in ("relu", "improved"):
+            kwargs.update(block_impl=self.block_impl)
+        return models.get_model(self.model_type, **kwargs, generator=generator,
+                                device=device)
+
+
+@dataclass
+class DataConfig:
+    train: Tuple[str, ...] = ("WHAM",)
+    val: Tuple[str, ...] = ("WHAM",)
+    test: Tuple[str, ...] = ()
+    train_val: Tuple[str, ...] = ()
+    separation_task: str = "sep_clean"
+    fs: int = 8000
+    audio_timelength: float = 4.0
+    min_or_max: str = "min"
+    zero_pad_audio: bool = True
+    normalize_audio: bool = False
+    n_channels: int = 1
+    min_num_sources: int = 1
+    max_num_sources: int = 4
+    n_train: int = 0
+    n_val: int = 0
+    n_test: int = 0
+    n_train_val: int = 0
+    batch_size: int = 4
+    n_jobs: int = 4
+    # hierarchical online-mixing datasets (AUGMENTED_*): wait
+    train_dataset_paths: Tuple[str, ...] = ()
+    val_dataset_paths: Tuple[str, ...] = ()
+    test_dataset_paths: Tuple[str, ...] = ()
+    max_abs_snr: float = 2.5
+
+
+@dataclass
+class TrainConfig:
+    n_epochs: int = 200
+    learning_rate: float = 1e-3
+    divide_lr_by: float = 3.0
+    patience_epochs: int = 0
+    clip_grad_norm: float = 5.0
+    loss_clamp: float = 30.0
+    mixture_consistency: Optional[str] = None
+    optimizer: str = "adam"  # 'radam_cosine' waits
+    grad_accum_steps: int = 1
+    # train steps per dispatch; the port takes them one by one (1)
+    chain_steps: int = 1
+    # fwd/bwd compute dtype over fp32 master params and loss, e.g. 'bfloat16'
+    compute_dtype: Optional[str] = None
+    upload_dtype: Optional[str] = None  # waits
+    # dispatches in flight before the host waits; the port sets no bound (0)
+    max_inflight: int = 0
+    device_data: bool = False  # waits
+    # stop after this many epochs without a new best on the primary val
+    # metric (0 = train all n_epochs)
+    early_stop_patience: int = 0
+    n_model: int = 1  # > 1 (tensor parallelism) waits
+    save_checkpoint_every: int = 10
+    checkpoints_path: str = field(default_factory=lambda: paths.checkpoints)
+    seed: int = 0
+
+
+@dataclass
+class ExperimentConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    experiment_name: str = "sudo_tpu_experiment"
+    tags: Tuple[str, ...] = ()
+
+    def hparams(self) -> dict:
+        """Flatten into the reference-style hparams dict."""
+        out = {}
+        for section in (self.model, self.data, self.train):
+            out.update(dataclasses.asdict(section))
+        out["train"] = list(self.data.train)
+        out["val"] = list(self.data.val)
+        out["test"] = list(self.data.test)
+        out["train_val"] = list(self.data.train_val)
+        return out

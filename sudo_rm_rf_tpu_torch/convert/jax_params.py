@@ -1,11 +1,14 @@
-"""Load the JAX package's param trees into the port.
+"""Load the JAX package's param trees and train states into the port.
 
 The port's modules carry the torch reference's attribute names, so a flax
 param tree (nested dicts of arrays) maps onto ``model.state_dict()`` by pure
-renaming (``convert.torch_checkpoint``).
+renaming (``convert.torch_checkpoint``). Adam's moments are trees of the same
+structure and map the same way.
 """
 
 from __future__ import annotations
+
+import torch
 
 from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import params_to_state_dict
 
@@ -16,3 +19,46 @@ def load_jax_params(model, params):
     model.load_state_dict(params_to_state_dict(params, model.state_dict().keys()),
                           strict=True)
     return model
+
+
+def _find_adam_state(tree):
+    """The optax ``ScaleByAdamState`` (count, mu, nu) inside an opt state."""
+    if all(hasattr(tree, k) for k in ("count", "mu", "nu")):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for item in tree:
+            found = _find_adam_state(item)
+            if found is not None:
+                return found
+    return None
+
+
+def load_jax_train_state(model, optimizer, params, opt_state, step):
+    """Carry a JAX ``TrainState`` (as numpy trees) into the port.
+
+    ``params`` go into ``model`` as in :func:`load_jax_params`; the optax
+    Adam state inside ``opt_state`` (``ScaleByAdamState.mu/nu/count``)
+    becomes ``optimizer``'s ``exp_avg``, ``exp_avg_sq`` and ``step`` for each
+    param; ``step`` is the count of updates, which the LR schedule reads.
+    ``optimizer`` is a ``torch.optim.Adam`` over ``model.parameters()``.
+    Returns the port's ``TrainState``.
+    """
+    from sudo_rm_rf_tpu_torch.train.trainer import TrainState
+
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("opt_state holds no Adam state (count, mu, nu)")
+    load_jax_params(model, params)
+    keys = model.state_dict().keys()
+    mu, nu = params_to_state_dict(adam.mu, keys), params_to_state_dict(adam.nu, keys)
+    owned = {id(p) for group in optimizer.param_groups for p in group["params"]}
+    count = float(adam.count)
+    for name, p in model.named_parameters():
+        if id(p) not in owned:
+            raise ValueError(f"optimizer does not hold param {name}")
+        optimizer.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device, p.dtype),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype),
+        }
+    return TrainState(step=int(step), model=model, optimizer=optimizer)

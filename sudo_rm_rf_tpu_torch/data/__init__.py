@@ -1,5 +1,15 @@
-"""Host-side audio I/O of the port."""
+"""Host-side audio I/O and the dataset loaders of the port (numpy only)."""
 
-from sudo_rm_rf_tpu_torch.data.base import read_wav
+from sudo_rm_rf_tpu_torch.data.base import DatasetConfigError, read_wav
+from sudo_rm_rf_tpu_torch.data.libri2mix import LibriMixDataset
+from sudo_rm_rf_tpu_torch.data.loader import DataLoader
+from sudo_rm_rf_tpu_torch.data.wham import WHAM_TASKS, WhamDataset
 
-__all__ = ["read_wav"]
+__all__ = [
+    "DataLoader",
+    "DatasetConfigError",
+    "LibriMixDataset",
+    "WHAM_TASKS",
+    "WhamDataset",
+    "read_wav",
+]

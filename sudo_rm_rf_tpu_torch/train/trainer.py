@@ -1,0 +1,271 @@
+"""Trainer of the port (counterpart of ``sudo_rm_rf_tpu/train/trainer.py``).
+
+One train step, as the JAX package takes it: augment the batch, forward
+(optionally in a low-precision compute dtype over fp32 master params, and
+through the mixture-consistency projection), PIT loss with the loss *value*
+clamped (so gradients vanish where it saturates), optional gradient
+accumulation over microbatches, global-norm clipping, then Adam at the
+stepped learning rate. The clip and the learning-rate count follow optax's
+``chain(clip_by_global_norm, adam(schedule))``: update k runs at
+``schedule(k)``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from sudo_rm_rf_tpu_torch import losses as losses_lib
+from sudo_rm_rf_tpu_torch.train import augment as augment_lib
+
+# the trainer options of the JAX package that the port does not take yet,
+# each with the ROADMAP item that holds it
+_WAITING = "ROADMAP queue 1, item 5a"
+
+
+def stepped_lr_schedule(
+    learning_rate: float,
+    divide_lr_by: float,
+    patience_epochs: int,
+    steps_per_epoch: int,
+    epoch_end_phase: bool = False,
+) -> Callable[[int], float]:
+    """lr / divide_lr_by ** (epoch // patience), in float32 as optax takes it.
+
+    epoch_end_phase=True is the reference's decay phase: a decay takes
+    effect one epoch later, so epoch e (0-based) trains at
+    lr / div ** max(0, (e - 1) // patience).
+    """
+
+    def schedule(step: int) -> float:
+        if patience_epochs <= 0:
+            return learning_rate
+        epoch = step // max(steps_per_epoch, 1)
+        if epoch_end_phase:
+            exponent = max(0, (epoch - 1) // patience_epochs)
+        else:
+            exponent = epoch // patience_epochs
+        return float(np.float32(learning_rate)
+                     / np.float32(divide_lr_by) ** np.float32(exponent))
+
+    return schedule
+
+
+@dataclass
+class TrainState:
+    """The model (fp32 master params), its Adam and the count of updates."""
+
+    step: int
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+
+
+@dataclass(frozen=True)
+class TrainerConfig:
+    learning_rate: float = 1e-3
+    divide_lr_by: float = 3.0
+    patience_epochs: int = 0  # 0 = constant LR
+    steps_per_epoch: int = 1
+    clip_grad_norm: float = 5.0
+    loss_clamp: float = 30.0  # 0 disables
+    lr_decay_at_epoch_end: bool = False
+    mixture_consistency: Optional[str] = None  # None | 'uniform' | 'magsq'
+    optimizer: str = "adam"  # 'radam_cosine' waits
+    # forward/backward in this dtype over fp32 master params; the loss and
+    # the update stay fp32. None = fp32.
+    compute_dtype: Optional[str] = None
+    # microbatches per update: the batch is augmented whole, then split;
+    # the loss clamp applies per microbatch
+    grad_accum_steps: int = 1
+    shard_params: bool = False  # waits
+    train_dropout: bool = False  # waits
+    upload_dtype: Optional[str] = None  # waits
+
+
+def _default_loss(est, targets):
+    return losses_lib.pit_neg_sdr_loss(est, targets, sdr_type="sisdr")
+
+
+def _default_prepare(draws, batch):
+    mixture, sources = augment_lib.online_remix_sources(batch, *draws)
+    return mixture[:, None, :], sources
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element of every tensor."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor) -> None:
+    """In place, as optax's ``clip_by_global_norm``: g where norm < max_norm,
+    else g / norm * max_norm. Both branches are taken on the device, so the
+    host never waits for the norm."""
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(norm, max_norm)))
+
+
+def check_config(config: TrainerConfig) -> None:
+    """Raise for a trainer option the port does not take yet."""
+    for name in ("shard_params", "train_dropout"):
+        if getattr(config, name):
+            raise NotImplementedError(f"{name} is not ported yet ({_WAITING})")
+    if config.upload_dtype not in (None, "float32"):
+        raise NotImplementedError(f"upload_dtype is not ported yet ({_WAITING})")
+    if config.optimizer != "adam":
+        raise NotImplementedError(
+            f"optimizer {config.optimizer!r} is not ported yet ({_WAITING})")
+
+
+def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    if name is None:
+        return None
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown compute_dtype {name!r}")
+    return dtype
+
+
+class Trainer:
+    """Train and eval steps for a port model.
+
+    Args:
+      model: an ``nn.Module`` mapping (B, 1, T) -> (B, S, T), on the device
+        to train on. Its U-ConvBlocks must not be ``block_impl='kernel'``:
+        the CUDA kernel has no backward.
+      config: TrainerConfig.
+      loss_fn: (est (B, S, T), targets (B, S, T)) -> scalar (negated metric).
+      prepare_batch: (draws, batch) -> (mixture (B, 1, T), targets (B, S, T));
+        defaults to the WSJ0/WHAM online remix of a (B, S, T) source batch
+        with draws from ``augment.draw_remix``.
+    """
+
+    def __init__(
+        self,
+        model: nn.Module,
+        config: TrainerConfig = TrainerConfig(),
+        loss_fn: Callable = _default_loss,
+        prepare_batch: Optional[Callable] = None,
+    ):
+        check_config(config)
+        if any(getattr(m, "block_impl", None) == "kernel" for m in model.modules()):
+            raise ValueError("block_impl 'kernel' is forward-only: train with "
+                             "block_impl 'fma' or 'xla'")
+        self.model = model
+        self.config = config
+        self.loss_fn = loss_fn
+        self.prepare_batch = prepare_batch or _default_prepare
+        self.compute_dtype = _dtype(config.compute_dtype)
+        self.schedule = stepped_lr_schedule(
+            config.learning_rate, config.divide_lr_by, config.patience_epochs,
+            config.steps_per_epoch, epoch_end_phase=config.lr_decay_at_epoch_end)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    # -- state ---------------------------------------------------------------
+
+    def init_state(self) -> TrainState:
+        """State from the model's current params, with fresh Adam moments."""
+        opt = torch.optim.Adam(self.model.parameters(), lr=self.config.learning_rate,
+                               betas=(0.9, 0.999), eps=1e-8)
+        return TrainState(step=0, model=self.model, optimizer=opt)
+
+    def state_from_params(self, state_dict) -> TrainState:
+        """Load a state_dict into the model, then :meth:`init_state`."""
+        self.model.load_state_dict(state_dict, strict=True)
+        return self.init_state()
+
+    # -- steps ---------------------------------------------------------------
+
+    def forward(self, model: nn.Module, mixture: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Estimates (B, S, T) in fp32. With ``compute_dtype`` the params and
+        the mixture are cast to it by differentiable casts (the gradient
+        comes back to the fp32 params), as the JAX step casts its param
+        tree."""
+        if compute_dtype is not None:
+            params = {n: p.to(compute_dtype) for n, p in model.named_parameters()}
+            mixture = mixture.to(compute_dtype)
+            est = torch.func.functional_call(model, params, (mixture,))
+        else:
+            est = model(mixture)
+        if self.config.mixture_consistency is not None:
+            mix = mixture if mixture.ndim == 3 else mixture[:, None, :]
+            est = losses_lib.mixture_consistency(est, mix, self.config.mixture_consistency)
+        return est.float()
+
+    def _loss(self, model, mixture, targets):
+        loss = self.loss_fn(self.forward(model, mixture, self.compute_dtype), targets)
+        if self.config.loss_clamp > 0:
+            loss = torch.clamp(loss, -self.config.loss_clamp, self.config.loss_clamp)
+        return loss
+
+    def _to_device(self, batch):
+        if isinstance(batch, (tuple, list)):
+            return type(batch)(self._to_device(b) for b in batch)
+        return torch.as_tensor(batch).to(self.device)
+
+    def compute_gradients(self, state: TrainState, batch, draws) -> torch.Tensor:
+        """Augment (``draws`` go to ``prepare_batch`` with the batch), forward
+        and backward: leaves each param's ``.grad`` (averaged over the
+        microbatches) and returns the loss."""
+        model = state.model
+        mixture, targets = self.prepare_batch(draws, self._to_device(batch))
+        state.optimizer.zero_grad(set_to_none=True)
+        k = self.config.grad_accum_steps
+        if k == 1:
+            loss = self._loss(model, mixture, targets)
+            loss.backward()
+            return loss.detach()
+        b = mixture.shape[0]
+        if b % k:
+            raise ValueError(f"batch {b} must divide grad_accum_steps {k}")
+        loss = torch.zeros((), device=mixture.device)
+        for m_i, t_i in zip(mixture.chunk(k), targets.chunk(k)):
+            loss_i = self._loss(model, m_i, t_i)
+            (loss_i / k).backward()
+            loss = loss + loss_i.detach() / k
+        return loss
+
+    def apply_gradients(self, state: TrainState) -> torch.Tensor:
+        """Clip the params' ``.grad`` by their global norm and take one Adam
+        step at ``schedule(state.step)``; returns the norm before the clip."""
+        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+        norm = global_norm(grads)
+        if self.config.clip_grad_norm > 0:
+            clip_by_global_norm_(grads, self.config.clip_grad_norm, norm)
+        for group in state.optimizer.param_groups:
+            group["lr"] = self.schedule(state.step)
+        state.optimizer.step()
+        state.step += 1
+        return norm
+
+    def train_step(self, state: TrainState, batch, draws):
+        """One update. Returns (state, {"loss", "grad_norm"}) with the
+        metrics as device scalars; grad_norm is the global norm before the
+        clip."""
+        loss = self.compute_gradients(state, batch, draws)
+        return state, {"loss": loss, "grad_norm": self.apply_gradients(state)}
+
+    @torch.no_grad()
+    def eval_step(self, model: nn.Module, mixture, targets, metric_fns=None):
+        """Eval metrics in fp32; metric_fns: name -> fn(est, targets, mixture).
+        The default is the per-sample SISDRi."""
+        if metric_fns is None:
+            sisdri = losses_lib.PermInvariantSISDR(
+                n_sources=targets.shape[1], zero_mean=True, backward_loss=False,
+                improvement=True, return_individual_results=True)
+            metric_fns = {
+                "SISDRi": lambda est, t, m: sisdri(
+                    est, t, initial_mixtures=m if m.ndim == 3 else m[:, None, :])
+            }
+        mixture, targets = self._to_device(mixture), self._to_device(targets)
+        est = self.forward(model, mixture)
+        return {name: fn(est, targets, mixture) for name, fn in metric_fns.items()}

@@ -1,0 +1,120 @@
+"""Checkpoint manager of the port (counterpart of
+``sudo_rm_rf_tpu/utils/checkpoint.py``).
+
+The JAX manager's policies and file names: periodic saves
+``<model>_epoch_<n>`` every N epochs, ``save_if_best`` keeping one
+``best_<metric>_<value>_<ts>`` and one ``current_<metric>_<value>_<ts>``
+snapshot (each with a ``.json`` of its metadata), ``latest_epoch``,
+``load_best`` and ``load_latest``; every write is atomic. A file holds
+``torch.save({"step", "model", "optimizer"})``: the update count, the model's
+state_dict and the optimizer's, so a run resumes with its Adam moments.
+"""
+
+from __future__ import annotations
+
+import datetime
+import glob
+import json
+import os
+import re
+from typing import Optional
+
+import torch
+
+
+def _timestamp() -> str:
+    return datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+
+
+class CheckpointManager:
+    """Manages best/current/periodic checkpoints for one experiment dir."""
+
+    def __init__(self, directory: str, model_name: str = "model"):
+        self.directory = directory
+        self.model_name = model_name
+        os.makedirs(directory, exist_ok=True)
+        self._best_value: Optional[float] = None
+
+    # -- low-level -----------------------------------------------------------
+
+    def _path(self, tag: str) -> str:
+        return os.path.join(self.directory, tag)
+
+    def save(self, state, tag: str, metadata: Optional[dict] = None) -> str:
+        """Write a ``TrainState`` to <dir>/<tag>."""
+        path = self._path(tag)
+        tmp = path + ".tmp"
+        torch.save({"step": int(state.step), "model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict()}, tmp)
+        os.replace(tmp, path)  # atomic: a crash never leaves a torn file
+        if metadata is not None:
+            with open(path + ".json", "w") as fh:
+                json.dump(metadata, fh)
+        return path
+
+    def restore(self, state, tag: Optional[str] = None, path: Optional[str] = None):
+        """Load a checkpoint into ``state`` (its model and optimizer, in
+        place) and return it."""
+        if path is None:
+            path = self._path(tag)
+        # on the host: load_state_dict copies each tensor to where its param
+        # lives, and Adam keeps its step counts on the host
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        state.model.load_state_dict(blob["model"], strict=True)
+        state.optimizer.load_state_dict(blob["optimizer"])
+        state.step = int(blob["step"])
+        return state
+
+    # -- policies ------------------------------------------------------------
+
+    def save_every(self, state, epoch: int, every: int) -> Optional[str]:
+        """Periodic save."""
+        if every > 0 and epoch % every == 0:
+            return self.save(state, f"{self.model_name}_epoch_{epoch}", {"epoch": epoch})
+        return None
+
+    def save_if_best(self, state, metric_name: str, value: float, epoch: int,
+                     higher_is_better: bool = True) -> bool:
+        """Replace the current_ snapshot; replace the best_ one if ``value``
+        beats every earlier one. Returns whether it did."""
+        ts = _timestamp()
+        meta = {"epoch": epoch, metric_name: value}
+        for old in glob.glob(self._path("current_*")):
+            os.remove(old)
+        self.save(state, f"current_{metric_name}_{value:.4f}_{ts}", meta)
+
+        is_best = (
+            self._best_value is None
+            or (higher_is_better and value > self._best_value)
+            or (not higher_is_better and value < self._best_value)
+        )
+        if is_best:
+            self._best_value = value
+            for old in glob.glob(self._path("best_*")):
+                os.remove(old)
+            self.save(state, f"best_{metric_name}_{value:.4f}_{ts}", meta)
+        return is_best
+
+    def _latest(self, pattern: str) -> str:
+        matches = sorted(glob.glob(self._path(pattern)))
+        matches = [m for m in matches if not m.endswith((".json", ".tmp"))]
+        if not matches:
+            raise FileNotFoundError(f"no checkpoint matching {pattern} in {self.directory}")
+        return matches[-1]
+
+    def load_best(self, state):
+        return self.restore(state, path=self._latest("best_*"))
+
+    def load_latest(self, state):
+        try:
+            return self.restore(state, path=self._latest("current_*"))
+        except FileNotFoundError:
+            return self.restore(state, path=self._latest(f"{self.model_name}_epoch_*"))
+
+    def latest_epoch(self) -> int:
+        epochs = []
+        for m in glob.glob(self._path(f"{self.model_name}_epoch_*")):
+            match = re.search(r"_epoch_(\d+)$", m)
+            if match:
+                epochs.append(int(match.group(1)))
+        return max(epochs) if epochs else 0

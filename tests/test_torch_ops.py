@@ -98,10 +98,10 @@ def test_overlap_and_add(step):
 
 
 def test_port_imports_no_jax_and_never_falls_back(tmp_path):
-    """In a fresh interpreter, the whole port imports, runs a toy forward and
-    separates a tiny wav through ``sudo-torch-separate`` on the CPU without
-    importing JAX or any module of the JAX package; asking for CUDA where
-    there is none raises."""
+    """In a fresh interpreter, the whole port imports, runs a toy forward,
+    separates a tiny wav through ``sudo-torch-separate`` and trains one epoch
+    through ``sudo-torch-train`` on the CPU without importing JAX or any
+    module of the JAX package; asking for CUDA where there is none raises."""
     code = textwrap.dedent("""
         import os, sys
         import numpy as np
@@ -116,6 +116,11 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
         from sudo_rm_rf_tpu_torch.models import fast_inference, improved_sudormrf, layers
         from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
         from sudo_rm_rf_tpu_torch.ops import _build, conv, frame, norm, pad, resample, uconv
+        from sudo_rm_rf_tpu_torch import config, losses, train, utils
+        from sudo_rm_rf_tpu_torch.cli import args, train as train_cli
+        from sudo_rm_rf_tpu_torch.data import libri2mix, loader, setup, synthetic, wham
+        from sudo_rm_rf_tpu_torch.train import augment, experiment, trainer
+        from sudo_rm_rf_tpu_torch.utils import audio_logging, checkpoint
 
         hp = dict(out_channels=8, in_channels=16, num_blocks=1, upsampling_depth=2,
                   enc_num_basis=8)
@@ -135,6 +140,15 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
         assert separate.main(argv) == 0
         assert os.path.exists(os.path.join(tmp, "mix_s2.wav"))
         assert uconv.fused_uconv_block.launches == 0
+        root = synthetic.write_wham_corpus(os.path.join(tmp, "wham"), n_train=2,
+                                           n_val=2, seconds=0.25)
+        train_argv = ["--train", "WHAM", "--val", "WHAM", "--wham_root", root,
+                      "--n_epochs", "1", "-bs", "2", "--audio_timelength", "0.25",
+                      "--n_jobs", "1", "-elp", os.path.join(tmp, "logs"),
+                      "-clp", os.path.join(tmp, "ckpt"), "--num_blocks", "1",
+                      "--out_channels", "8", "--in_channels", "16",
+                      "--upsampling_depth", "2", "--enc_num_basis", "8"]
+        assert train_cli.main(train_argv + ["--device", "cpu"]) == 0
         foreign = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "sudo_rm_rf_tpu"))
         assert not foreign, foreign
         if not torch.cuda.is_available():
@@ -142,6 +156,7 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
                 lambda: models.get_model("relu", num_blocks=1, device="cuda"),
                 lambda: separate.main(["--checkpoint", "absent.pt", "--input",
                                        "absent.wav", "--device", "cuda"]),
+                lambda: train_cli.main(train_argv),  # --device defaults to cuda
             ):
                 try:
                     call()
