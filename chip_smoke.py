@@ -9,13 +9,15 @@
    (``HGMMA``/``HMMA``) in the GEMM kernels' SASS where ``cuobjdump`` exists
    (failing if it is 0).
 3. The U-ConvBlock kernel (K1) against its plain version at the flagship
-   block shape (Co=256, Ci=512, T=3200, depth 5; B=1, 4, 8) and at two ragged
-   ones, within rtol=atol=1e-4; two calls on one input must be bit-identical.
-   At the flagship shape, time the kernel, ``uconv_block_fma`` and
-   ``uconv_block_reference`` (CUDA events, median of 25 after warm-up). At
-   B=4: the device time of each of K1's parts (``torch.profiler``), K1's
-   bound, and the ``torch.matmul`` time of the same two products (TF32 off,
-   and labelled, on), a yardstick the port never calls.
+   block shape (Co=256, Ci=512, T=3200, depth 5; B=1, 4, 8), at two ragged
+   ones and at the GroupComm folded shape (B*G=64, Co=16, Ci=32, T=3200,
+   depth 5), within rtol=atol=1e-4; two calls on one input must be
+   bit-identical. At the flagship shape, time the kernel, ``uconv_block_fma``
+   and ``uconv_block_reference`` (CUDA events, median of 25 after warm-up).
+   At B=4 and at the GroupComm shape, also: the device time of each of K1's
+   parts and the GEMM tile width taken (``torch.profiler``), K1's bound, and
+   the ``torch.matmul`` time of the same two products (TF32 off, and
+   labelled, on), a yardstick the port never calls.
 4. The serving path: ``sudo-torch-separate`` with a seeded random Improved
    SuDoRM-RF U16/512 checkpoint on three synthetic 8 kHz wavs (3 s, 10 s,
    25 s), batch 4. Checks the outputs, that the kernel ran 16 times per
@@ -23,7 +25,13 @@
    blocks. Then kernel-vs-plain fidelity of one 4 s bs4 forward (>= 80 dB),
    the bs4 fp32 forward time of each block form, and the kernel forward's
    device time by kernel with the device's idle share.
-5. The training path: ``sudo-torch-train`` on a WHAM-layout directory of 16
+5. The same for GroupComm SuDoRM-RF v2 U16/512 (group 16):
+   ``sudo-torch-separate --model_type groupcomm_v2 --mixture_consistency
+   uniform``, K1 launched 16 times per forward batch in the group-folded
+   layout, one file against the ``xla`` blocks (1 LSB), fidelity of the
+   ``kernel`` forward against ``xla`` (>= 80 dB), and the time of every
+   ``groupcomm_forward_fast`` impl.
+6. The training path: ``sudo-torch-train`` on a WHAM-layout directory of 16
    train and 8 val synthetic 4 s wavs, U16/512, batch 4, ``block_impl fma``,
    fp32: 2 epochs (8 steps) saving a checkpoint each epoch, then again with
    ``--resume`` for a third. Checks that every step's loss is finite, that
@@ -37,7 +45,11 @@
    warm-up) and peak memory of the fma and xla blocks, each in fp32 and
    bf16, with each step's device busy time, idle share, device launches and
    top kernels (``torch.profiler``).
-6. Print a JSON line of the training results and one of kernel results, then
+7. GroupComm training on the same corpus: ``sudo-torch-train --model_type
+   groupcomm_v2 --block_impl fma --mixture_consistency uniform`` for one
+   epoch (finite losses, val SISDRi printed, 0 K1 launches), one step card
+   vs CPU (1e-3), and the step times of the fma and xla blocks in fp32.
+8. Print a JSON line of the training results and one of kernel results, then
    ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
    exits non-zero.
 """
@@ -63,10 +75,16 @@ BATCH = 4
 FLAGSHIP = dict(out_channels=256, in_channels=512, num_blocks=16,
                 upsampling_depth=5, enc_kernel_size=21, enc_num_basis=512,
                 num_sources=2)
+# the GroupComm SuDoRM-RF v2 operating point of scripts/bench_gc_serving.py
+# (565,073 params)
+GROUPCOMM = dict(FLAGSHIP, group_size=16)
 # B, Co, Ci, T, depth: the flagship block at batch 1, 4 and 8; a ragged one;
-# and one with T % 4 != 0, which takes the kernel's 4-byte load paths
+# one with T % 4 != 0, which takes the kernel's 4-byte load paths; and the
+# GroupComm block at bs4 with its 16 groups folded into the batch
+GC_BLOCK = (BATCH * GROUPCOMM["group_size"], 256 // 16, 512 // 16, 3200, 5)
 BLOCK_SHAPES = [(1, 256, 512, 3200, 5), (4, 256, 512, 3200, 5),
-                (8, 256, 512, 3200, 5), (2, 20, 36, 648, 4), (2, 70, 100, 334, 2)]
+                (8, 256, 512, 3200, 5), (2, 20, 36, 648, 4), (2, 70, 100, 334, 2),
+                GC_BLOCK]
 WAV_SECONDS = (3.0, 10.0, 25.0)
 MIN_FIDELITY_DB = 80.0
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -78,6 +96,8 @@ TRAIN_FILES, VAL_FILES = 16, 8
 TRAIN_EPOCHS = 2
 STEP_WARMUP, STEP_REPS = 3, 10
 MAX_CARD_CPU_REL = 1e-3
+HP_FLAGS = ("out_channels", "in_channels", "num_blocks", "upsampling_depth",
+            "enc_kernel_size", "enc_num_basis", "group_size")
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 25) -> float:
@@ -140,6 +160,19 @@ def device_ms_by_kernel(torch, fn, calls: int, by_part: bool = True,
             if launches is not None:
                 launches[name] = launches.get(name, 0.0) + e.count / calls
     return out
+
+
+def gemm_tiles(names) -> dict:
+    """Channel width of the tile each K1 GEMM ran with ({'proj': 64 or 128,
+    'res': ...}), read from the profiled kernel names: the template's NJ is
+    64-channel sub-tiles, its PRO flag tells the res GEMM from the proj."""
+    tiles = {}
+    for name in names:
+        m = (re.search(r"gemm_kernel<(\d), (true|false)", name)
+             or re.search(r"gemm_kernelILi(\d)ELb(\d)", name))
+        if m:
+            tiles["res" if m.group(2) in ("true", "1") else "proj"] = 64 * int(m.group(1))
+    return tiles
 
 
 def tensor_core_instructions(lib) -> int | None:
@@ -214,38 +247,323 @@ def run_cli(main_fn, argv) -> str:
     return tee.copy.getvalue()
 
 
+def hp_argv(hp: dict) -> list:
+    return [a for key in HP_FLAGS if key in hp for a in (f"--{key}", str(hp[key]))]
+
+
 def si_sdr_db(np, est, ref) -> float:
     est, ref = est - est.mean(), ref - ref.mean()
     proj = (est @ ref) / (ref @ ref) * ref
     return float(10 * np.log10((proj @ proj) / ((est - proj) @ (est - proj))))
 
 
-def train_phase(torch, np, tmp: str, hp: dict, device: str = "cuda",
-                reps: int = STEP_REPS) -> dict:
-    """Phase 5: train, resume, serve the trained weights, hold one card step
-    to the CPU and time the step. Returns the numbers for the JSON line."""
+def k1_phase(torch, U, lib, hmma) -> dict:
+    """Phase 3: K1 against its plain version at every shape; the profiled
+    rows at the flagship B=4 and the GroupComm folded shape."""
+    rows = {}
+    for b, co, ci, t, depth in BLOCK_SHAPES:
+        p = block_params(torch, depth, ci, co, seed=0)
+        x = torch.randn(b, co, t, generator=torch.Generator().manual_seed(1)).cuda()
+        got = U.fused_uconv_block(x, p, depth)
+        torch.cuda.synchronize()
+        want = U.uconv_block_reference(x, p, depth)
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        print(f"K1 {(b, co, ci, t, depth)}: max_abs_err {err:.3e} "
+              f"(relative to max |plain| {rel:.3e})")
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        if not torch.equal(got, U.fused_uconv_block(x, p, depth)):
+            raise RuntimeError(f"K1 {(b, co, ci, t, depth)}: two calls differ")
+        name = ("flagship" if (co, ci, t, depth) == (256, 512, 3200, 5)
+                else "groupcomm" if (b, co, ci, t, depth) == GC_BLOCK else None)
+        if name is None:
+            continue
+        ms = {form: time_ms(torch, lambda f=f: f(x, p, depth)) for form, f in (
+            ("kernel", U.fused_uconv_block), ("fma", U.uconv_block_fma),
+            ("plain", U.uconv_block_reference))}
+        label = f"K1 {name} B={b}"
+        print(f"{label} ms (median of 25): kernel {ms['kernel']:.4f} "
+              f"fma {ms['fma']:.4f} plain {ms['plain']:.4f}")
+        if name == "flagship" and b != BATCH:
+            continue  # the profiled rows are the serving path's shapes
+        bound = k1_bound(b, co, ci, t, depth)
+        row = dict(shape=f"B,Co,Ci,T,depth={b},{co},{ci},{t},{depth}", max_abs_err=err,
+                   ms=ms["kernel"], plain_ms=ms["plain"], fma_ms=ms["fma"],
+                   bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+        call = lambda: U.fused_uconv_block(x, p, depth)
+        parts = device_ms_by_kernel(torch, call, 20)
+        print(f"{label} device ms per call by part (torch.profiler, 20 calls): "
+              + (", ".join(f"{k} {parts[k]:.4f}" for k in K1_PARTS if k in parts)
+                 or "not measured (no device time in the trace)"))
+        tiles = gemm_tiles(device_ms_by_kernel(torch, call, 2, by_part=False))
+        print(f"{label} GEMM tile width (channels) taken by gemm(): "
+              + (", ".join(f"{k} {v}" for k, v in sorted(tiles.items()))
+                 or "not measured (no gemm_kernel in the trace)"))
+        acc_in = torch.randn(b, ci, t, generator=torch.Generator().manual_seed(2)).cuda()
+        two = lambda: (torch.matmul(p["proj_w"], x), torch.matmul(p["res_w"], acc_in))
+        lib_ms = time_ms(torch, two)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        lib_tf32_ms = time_ms(torch, two)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(f"{label} yardstick, torch.matmul of the same two products: fp32 "
+              f"{lib_ms:.4f} ms, TF32 (one pass, ~3 digits) {lib_tf32_ms:.4f} ms")
+        print(f"{label} bound {bound['bound_ms']:.4f} ms (3xTF32 tensor cores, "
+              f"{bound['bound_by']}; share {bound['bound_ms'] / ms['kernel']:.1%}), "
+              f"{bound['bound_fp32_simt_ms']:.4f} ms on the fp32 pipes (share "
+              f"{bound['bound_fp32_simt_ms'] / ms['kernel']:.1%})")
+        # the device memory one call allocates (its output and K1's scratch),
+        # read from the caching allocator; beside it, the scratch the shapes
+        # call for: the pyramid, the proj output, folds, partials, W's split
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        call_mb = (torch.cuda.max_memory_allocated() - before) / 1e6
+        ws = 4 * lib.uconv_workspace_floats(b, co, ci, t, depth) / 1e6
+        pyr = 4 * b * ci * sum(t >> k for k in range(depth)) / 1e6
+        print(f"{label} one call allocates {call_mb:.1f} MB on the card (measured: output "
+              f"{4 * x.numel() / 1e6:.1f} MB + scratch); the shapes call for a scratch of "
+              f"{ws:.1f} MB, of it the pyramid {pyr:.1f} MB")
+        row.update(library_ms=lib_ms, library_tf32_ms=lib_tf32_ms,
+                   library_call="torch.matmul of the proj and res products",
+                   parts_ms={k: parts.get(k) for k in K1_PARTS}, gemm_tiles=tiles,
+                   call_alloc_mb=call_mb, bit_identical=True,
+                   tensor_core_instructions=hmma)
+        rows[name] = row
+    return rows
+
+
+def serve_phase(torch, np, tmp: str, model_type: str, hp: dict, extra_argv=(),
+                device: str = "cuda") -> dict:
+    """Phases 4 and 5: serve a seeded checkpoint through
+    ``sudo-torch-separate`` (K1 launches counted from 0), one file again
+    through the plain blocks, then one bs4 forward: fidelity, the time of
+    each impl and the kernel forward's device time by kernel."""
+    from scipy.io import wavfile
+
     from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.cli.separate import main as separate_main
+    from sudo_rm_rf_tpu_torch.data.base import read_wav
+    from sudo_rm_rf_tpu_torch.inference import separate_file
+    from sudo_rm_rf_tpu_torch.models import fast_inference as fi
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+
+    gc = model_type == "groupcomm_v2"
+    forward = fi.groupcomm_forward_fast if gc else fi.improved_forward_fast
+    impls = fi.GC_IMPLS if gc else ("kernel", "fma", "xla")
+    mc = "uniform" if gc else None
+    tag = "GC U16/512" if gc else "U16/512"
+    chunk = int(CHUNK_SECONDS * FS)
+    rng = np.random.default_rng(0)
+    model = models.get_model(model_type, **hp, device=device,
+                             generator=torch.Generator().manual_seed(0))
+    model.eval()
+    ckpt = os.path.join(tmp, f"{model_type}.pt")
+    torch.save(model.state_dict(), ckpt)
+    wavs, batches = [], 0
+    for sec in WAV_SECONDS:
+        n = int(sec * FS)
+        tt = np.arange(n) / FS
+        mix = (0.3 * np.sin(2 * np.pi * 220 * tt) + 0.2 * np.sin(2 * np.pi * 1330 * tt)
+               + 0.05 * rng.standard_normal(n))
+        path = os.path.join(tmp, f"mix_{int(sec)}s.wav")
+        wavfile.write(path, FS, (mix * 32767).astype(np.int16))
+        wavs.append((path, n))
+        batches += n_forward_batches(n, chunk, BATCH)
+    out_dir = os.path.join(tmp, f"separated_{model_type}")
+    argv = ["--checkpoint", ckpt, "--model_type", model_type, "--input",
+            *(w for w, _ in wavs), "--out_dir", out_dir, "--device", device,
+            "--batch_chunks", str(BATCH), "-fs", str(FS),
+            "--chunk_seconds", str(CHUNK_SECONDS), *hp_argv(hp), *extra_argv]
+    # the serving path, with the kernel count at 0 just before it
+    U.fused_uconv_block.launches = 0
+    t0 = time.perf_counter()
+    if separate_main(argv) != 0:
+        raise RuntimeError("sudo-torch-separate returned non-zero")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = U.fused_uconv_block.launches
+    want = hp["num_blocks"] * batches if device == "cuda" else 0
+    print(f"CLI {model_type}: {len(wavs)} files, {batches} forward batches, "
+          f"{launches} kernel launches, {cli_s:.2f} s")
+    if launches != want:
+        raise RuntimeError(f"expected {want} kernel launches, counted {launches}")
+    for path, n in wavs:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        for s in (1, 2):
+            sr, est = read_wav(os.path.join(out_dir, f"{stem}_s{s}.wav"))
+            if sr != FS or est.shape != (n,) or not np.isfinite(est).all():
+                raise RuntimeError(f"{stem}_s{s}: sr {sr} shape {est.shape}")
+            if not np.abs(est).max() > 0:
+                raise RuntimeError(f"{stem}_s{s} is silent")
+    # one file again, through the plain blocks: the int16 outputs agree
+    plain_dir = os.path.join(tmp, f"plain_{model_type}")
+    separate_file(model, wavs[1][0], plain_dir, fs=FS, chunk_seconds=CHUNK_SECONDS,
+                  batch_chunks=BATCH, mixture_consistency=mc,
+                  forward_fn=functools.partial(forward, model, impl="xla"))
+    stem = os.path.splitext(os.path.basename(wavs[1][0]))[0]
+    lsbs = []
+    for s in (1, 2):
+        a = wavfile.read(os.path.join(out_dir, f"{stem}_s{s}.wav"))[1].astype(np.int32)
+        c = wavfile.read(os.path.join(plain_dir, f"{stem}_s{s}.wav"))[1].astype(np.int32)
+        lsbs.append(int(np.abs(a - c).max()))
+        print(f"CLI {model_type} {stem}_s{s}: kernel vs plain blocks max diff {lsbs[-1]} LSB")
+        if lsbs[-1] > 1:
+            raise RuntimeError(f"{stem}_s{s}: kernel and plain outputs differ by {lsbs[-1]} LSB")
+
+    # fidelity and speed of one bs4 4 s forward
+    n_out = 2 * hp.get("in_audio_channels", 1)
+    x = torch.from_numpy(rng.standard_normal((BATCH, 1, chunk)).astype(np.float32)).to(device)
+    U.fused_uconv_block.launches = 0
+    ker = forward(model, x, impl="kernel")
+    per_forward = U.fused_uconv_block.launches
+    print(f"{tag} bs{BATCH} kernel forward: {per_forward} K1 launches (counted)")
+    if per_forward != (hp["num_blocks"] if device == "cuda" else 0):
+        raise RuntimeError(f"one kernel forward launched K1 {per_forward} times")
+    ref = forward(model, x, impl="xla")
+    if ker.shape != (BATCH, n_out, chunk) or not torch.isfinite(ker).all():
+        raise RuntimeError(f"bad forward output {tuple(ker.shape)}")
+    fid = fidelity_db(np, ref.double().cpu().numpy(), ker.double().cpu().numpy())
+    print(f"{tag} bs{BATCH} fp32 forward fidelity kernel vs xla: {fid:.2f} dB")
+    if not fid >= MIN_FIDELITY_DB:
+        raise RuntimeError(f"fidelity {fid:.2f} dB < {MIN_FIDELITY_DB} dB")
+    out = dict(launches=launches, forward_batches=batches, launches_per_forward=per_forward,
+               cli_s=cli_s, cli_vs_plain_lsb=max(lsbs), fidelity_db=fid)
+    if device != "cuda":
+        return out
+    audio_s = BATCH * CHUNK_SECONDS
+    fwd = {}
+    for impl in impls:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, lambda i=impl: forward(model, x, impl=i), reps=20)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        fwd[impl] = dict(ms=ms, audio_s_per_s=audio_s / (ms / 1e3), peak_mib=peak)
+        print(f"{tag} bs{BATCH} fp32 forward impl={impl}: {ms:.3f} ms, "
+              f"{audio_s / (ms / 1e3):.1f} audio-s/s, peak {peak:.0f} MiB")
+    counts = {}
+    by_kernel = device_ms_by_kernel(
+        torch, lambda: forward(model, x, impl="kernel"), 5, launches=counts)
+    busy = sum(by_kernel.values())
+    print(f"{tag} bs{BATCH} kernel forward device ms by kernel (torch.profiler, 5 "
+          f"forwards): " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(by_kernel.items()))
+          + f"; busy {busy:.3f} of {fwd['kernel']['ms']:.3f} ms, idle "
+          f"{1 - busy / fwd['kernel']['ms']:.1%}; device launches a forward "
+          f"{sum(counts.values()):.0f}")
+    # "other" (everything outside K1) by kernel name
+    named_counts = {}
+    named = device_ms_by_kernel(torch, lambda: forward(model, x, impl="kernel"), 5,
+                                by_part=False, launches=named_counts)
+    top = sorted(((k, v) for k, v in named.items()
+                  if not re.search(r"(%s)_kernel" % "|".join(K1_PARTS), k)),
+                 key=lambda kv: -kv[1])[:8]
+    print(f"{tag} bs{BATCH} kernel forward, top 8 kernels outside K1 by device ms a "
+          f"forward (launches): " + "; ".join(
+              f"{k[:70]} {v:.3f} ({named_counts[k]:.0f})" for k, v in top))
+    out.update(forward=fwd, kernel_forward_device_ms=by_kernel, busy_ms=busy,
+               idle_share=1 - busy / fwd["kernel"]["ms"],
+               device_launches=sum(counts.values()),
+               top_other_kernels_ms={k[:80]: v for k, v in top})
+    return out
+
+
+def step_checks(torch, np, model_type: str, hp: dict, weights: dict, sources, device: str,
+                variants, reps: int = STEP_REPS, **trainer_cfg) -> dict:
+    """One step of ``weights`` on the card and on the CPU from the same
+    batch and draws (loss and grad norm within MAX_CARD_CPU_REL), then the
+    median step time, peak memory and profile of each (block_impl,
+    compute_dtype) in ``variants``."""
+    from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig, draw_remix
+
+    tag = "GC " if model_type == "groupcomm_v2" else ""
+    draws = draw_remix(torch.Generator().manual_seed(7), BATCH, 2)
+    metrics = {}
+    for dev in (device, "cpu"):
+        model = models.get_model(model_type, **hp, block_impl="fma", device=dev)
+        model.load_state_dict(weights)
+        tr = Trainer(model, TrainerConfig(**trainer_cfg))
+        _, m = tr.train_step(tr.init_state(), sources, draws)
+        metrics[dev] = {k: float(v) for k, v in m.items()}
+        del model, tr
+    rel = {k: abs(metrics[device][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    print(f"{tag}one step card vs CPU: loss {metrics[device]['loss']:.6f} vs "
+          f"{metrics['cpu']['loss']:.6f} (rel {rel['loss']:.2e}), grad norm "
+          f"{metrics[device]['grad_norm']:.6f} vs {metrics['cpu']['grad_norm']:.6f} "
+          f"(rel {rel['grad_norm']:.2e})")
+    if abs(metrics["cpu"]["loss"]) >= TrainerConfig().loss_clamp:
+        raise RuntimeError("the loss clamp saturated: the comparison would be vacuous")
+    if max(rel.values()) > MAX_CARD_CPU_REL:
+        raise RuntimeError(f"card and CPU steps differ by {rel}")
+
+    # step times, on a batch resident on the card
+    steps = {}
+    if device == "cuda":
+        batch = torch.from_numpy(sources).to(device)
+        audio_s = BATCH * CHUNK_SECONDS
+        for impl, dtype in variants:
+            model = models.get_model(model_type, **hp, block_impl=impl, device=device)
+            model.load_state_dict(weights)
+            tr = Trainer(model, TrainerConfig(compute_dtype=dtype, **trainer_cfg))
+            state, gen = tr.init_state(), torch.Generator().manual_seed(0)
+            step = lambda: tr.train_step(state, batch, draw_remix(gen, BATCH, 2))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(torch, step, warmup=STEP_WARMUP, reps=reps)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            name = f"{impl} {dtype or 'float32'}"
+            row = dict(ms=ms, audio_s_per_s=audio_s / (ms / 1e3), peak_mib=peak)
+            counts = {}
+            by_name = device_ms_by_kernel(torch, step, 3, by_part=False, launches=counts)
+            busy = sum(by_name.values())
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            row.update(device_busy_ms=busy, idle_share=1 - busy / ms,
+                       device_launches=sum(counts.values()),
+                       top_kernels_ms={k[:80]: v for k, v in top})
+            steps[name] = row
+            print(f"{tag}train step {tag}U16/512 bs{BATCH} {name}: {ms:.3f} ms (median of "
+                  f"{reps}), {row['audio_s_per_s']:.1f} audio-s/s, peak {peak:.0f} MiB; "
+                  f"torch.profiler over 3 steps: device busy {busy:.3f} ms, idle "
+                  f"{row['idle_share']:.1%}, {row['device_launches']:.0f} device "
+                  f"launches a step; top 6 of {len(by_name)} kernels by device ms: "
+                  + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+            del model, tr, state
+            torch.cuda.empty_cache()
+    return dict(card_vs_cpu=dict(metrics, rel=rel), steps=steps)
+
+
+def _tr_sources(np, root):
+    """The first BATCH training pairs of the corpus, (BATCH, 2, T)."""
+    from sudo_rm_rf_tpu_torch.data.base import read_wav
+
+    tr = os.path.join(root, f"wav{FS // 1000}k", "min", "tr")
+    return np.stack([np.stack([read_wav(os.path.join(tr, d, f"utt{i:04d}.wav"))[1]
+                               for d in ("s1", "s2")]) for i in range(BATCH)])
+
+
+def _train_argv(model_type, hp, root, tmp, name, device):
+    return ["--train", "WHAM", "--val", "WHAM", "--separation_task", "sep_clean",
+            "--model_type", model_type, "-bs", str(BATCH), "--block_impl", "fma",
+            "--audio_timelength", str(CHUNK_SECONDS), "-fs", str(FS), "--n_jobs", "4",
+            "--save_checkpoint_every", "1", "--experiment_name", name,
+            "-elp", os.path.join(tmp, "logs"), "-clp", os.path.join(tmp, "ckpt"),
+            "--wham_root", root, "--device", device, *hp_argv(hp)]
+
+
+def train_phase(torch, np, tmp: str, root: str, hp: dict, device: str = "cuda",
+                reps: int = STEP_REPS) -> dict:
+    """Phase 6: train, resume, serve the trained weights, hold one card step
+    to the CPU and time the step. Returns the numbers for the JSON line."""
     from sudo_rm_rf_tpu_torch.cli.separate import main as separate_main
     from sudo_rm_rf_tpu_torch.cli.train import main as train_main
     from sudo_rm_rf_tpu_torch.data.base import read_wav
-    from sudo_rm_rf_tpu_torch.data.synthetic import write_wham_corpus
     from sudo_rm_rf_tpu_torch.ops import uconv as U
-    from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig, draw_remix
 
-    t0 = time.perf_counter()
-    root = write_wham_corpus(os.path.join(tmp, "wham"), TRAIN_FILES, VAL_FILES,
-                             CHUNK_SECONDS, FS, seed=0)
-    print(f"train: corpus of {TRAIN_FILES} + {VAL_FILES} wavs of {CHUNK_SECONDS} s "
-          f"in {time.perf_counter() - t0:.1f} s")
     logs, ckpts = os.path.join(tmp, "logs"), os.path.join(tmp, "ckpt")
-    argv = ["--train", "WHAM", "--val", "WHAM", "--separation_task", "sep_clean",
-            "--model_type", "relu", "-bs", str(BATCH), "--block_impl", "fma",
-            "--audio_timelength", str(CHUNK_SECONDS), "-fs", str(FS), "--n_jobs", "4",
-            "--save_checkpoint_every", "1", "--experiment_name", "smoke", "-elp", logs,
-            "-clp", ckpts, "--wham_root", root, "--device", device]
-    for key in ("out_channels", "in_channels", "num_blocks", "upsampling_depth",
-                "enc_kernel_size", "enc_num_basis"):
-        argv += [f"--{key}", str(hp[key])]
+    argv = _train_argv("relu", hp, root, tmp, "smoke", device)
 
     # the training path, with the kernel counts at 0 just before it
     U.fused_uconv_block.launches = 0
@@ -297,10 +615,7 @@ def train_phase(torch, np, tmp: str, hp: dict, device: str = "cuda",
     mix_path = os.path.join(cv, "mix_clean", "utt0000.wav")
     sep_argv = ["--checkpoint", pt, "--input", mix_path, "--out_dir", os.path.join(tmp, "sep"),
                 "--device", device, "--batch_chunks", str(BATCH), "-fs", str(FS),
-                "--chunk_seconds", str(CHUNK_SECONDS)]
-    for key in ("out_channels", "in_channels", "num_blocks", "upsampling_depth",
-                "enc_kernel_size", "enc_num_basis"):
-        sep_argv += [f"--{key}", str(hp[key])]
+                "--chunk_seconds", str(CHUNK_SECONDS), *hp_argv(hp)]
     U.fused_uconv_block.launches = 0
     run_cli(separate_main, sep_argv)
     serve_launches = U.fused_uconv_block.launches
@@ -318,68 +633,43 @@ def train_phase(torch, np, tmp: str, hp: dict, device: str = "cuda",
     print(f"serve the trained weights: {serve_launches} K1 launches; SI-SDRi of one val "
           f"file {best - base:.3f} dB")
 
-    # one step, card against CPU, from the same weights, batch and draws
-    sources = np.stack([
-        np.stack([read_wav(os.path.join(root, f"wav{FS // 1000}k", "min", "tr", d,
-                                        f"utt{i:04d}.wav"))[1] for d in ("s1", "s2")])
-        for i in range(BATCH)])
-    draws = draw_remix(torch.Generator().manual_seed(7), BATCH, 2)
-    metrics = {}
-    for dev in (device, "cpu"):
-        model = models.get_model("relu", **hp, block_impl="fma", device=dev)
-        model.load_state_dict(blob["model"])
-        tr = Trainer(model, TrainerConfig())
-        _, m = tr.train_step(tr.init_state(), sources, draws)
-        metrics[dev] = {k: float(v) for k, v in m.items()}
-        del model, tr
-    rel = {k: abs(metrics[device][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
-           for k in ("loss", "grad_norm")}
-    print(f"one step card vs CPU: loss {metrics[device]['loss']:.6f} vs "
-          f"{metrics['cpu']['loss']:.6f} (rel {rel['loss']:.2e}), grad norm "
-          f"{metrics[device]['grad_norm']:.6f} vs {metrics['cpu']['grad_norm']:.6f} "
-          f"(rel {rel['grad_norm']:.2e})")
-    if abs(metrics["cpu"]["loss"]) >= TrainerConfig().loss_clamp:
-        raise RuntimeError("the loss clamp saturated: the comparison would be vacuous")
-    if max(rel.values()) > MAX_CARD_CPU_REL:
-        raise RuntimeError(f"card and CPU steps differ by {rel}")
-
-    # step times, on a batch resident on the card
-    steps = {}
-    if device == "cuda":
-        batch = torch.from_numpy(sources).to(device)
-        audio_s = BATCH * CHUNK_SECONDS
-        for impl in ("fma", "xla"):
-            for dtype in (None, "bfloat16"):
-                model = models.get_model("relu", **hp, block_impl=impl, device=device)
-                model.load_state_dict(blob["model"])
-                tr = Trainer(model, TrainerConfig(compute_dtype=dtype))
-                state, gen = tr.init_state(), torch.Generator().manual_seed(0)
-                step = lambda: tr.train_step(state, batch, draw_remix(gen, BATCH, 2))
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                ms = time_ms(torch, step, warmup=STEP_WARMUP, reps=reps)
-                peak = torch.cuda.max_memory_allocated() / 2**20
-                name = f"{impl} {dtype or 'float32'}"
-                row = dict(ms=ms, audio_s_per_s=audio_s / (ms / 1e3), peak_mib=peak)
-                counts = {}
-                by_name = device_ms_by_kernel(torch, step, 3, by_part=False, launches=counts)
-                busy = sum(by_name.values())
-                top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-                row.update(device_busy_ms=busy, idle_share=1 - busy / ms,
-                           device_launches=sum(counts.values()),
-                           top_kernels_ms={k[:80]: v for k, v in top})
-                steps[name] = row
-                print(f"train step U16/512 bs{BATCH} {name}: {ms:.3f} ms (median of {reps}), "
-                      f"{row['audio_s_per_s']:.1f} audio-s/s, peak {peak:.0f} MiB; "
-                      f"torch.profiler over 3 steps: device busy {busy:.3f} ms, idle "
-                      f"{row['idle_share']:.1%}, {row['device_launches']:.0f} device "
-                      f"launches a step; top 6 of {len(by_name)} kernels by device ms: "
-                      + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
-                del model, tr, state
-                torch.cuda.empty_cache()
+    checks = step_checks(torch, np, "relu", hp, blob["model"], _tr_sources(np, root), device,
+                         [(i, d) for i in ("fma", "xla") for d in (None, "bfloat16")], reps)
     return dict(step_losses=step_losses, val_sisdri=val, train_launches=train_launches,
-                serve_launches=serve_launches, served_sisdri_db=best - base,
-                card_vs_cpu=dict(metrics, rel=rel), steps=steps)
+                serve_launches=serve_launches, served_sisdri_db=best - base, **checks)
+
+
+def gc_train_phase(torch, np, tmp: str, root: str, hp: dict, device: str = "cuda",
+                   reps: int = STEP_REPS) -> dict:
+    """Phase 7: one GroupComm epoch through the fma blocks with the uniform
+    mixture-consistency projection, one step card vs CPU, step times."""
+    from sudo_rm_rf_tpu_torch.cli.train import main as train_main
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+
+    argv = _train_argv("groupcomm_v2", hp, root, tmp, "smoke_gc", device) + [
+        "--mixture_consistency", "uniform", "--n_epochs", "1"]
+    U.fused_uconv_block.launches = 0
+    t0 = time.perf_counter()
+    out = run_cli(train_main, argv)
+    epoch_s = time.perf_counter() - t0
+    launches = U.fused_uconv_block.launches
+    epochs = re.findall(r"^epoch (\d+)/\d+ tr_loss=(\S+) val_SISDRi=(\S+)", out, re.M)
+    losses = np.load(os.path.join(tmp, "logs", "smoke_gc", "tr_loss", "epoch_1.npy")).tolist()
+    val = [float(v) for _, _, v in epochs]
+    print(f"GC train: 1 epoch in {epoch_s:.1f} s (model build, loader and validation "
+          f"included); K1 launches {launches}; step losses "
+          f"{', '.join(f'{v:.3f}' for v in losses)}; val SISDRi {val} dB")
+    if launches:
+        raise RuntimeError(f"the GroupComm training path launched K1 {launches} times")
+    if len(epochs) != 1 or len(losses) != TRAIN_FILES // BATCH or not (
+            np.isfinite(losses).all() and np.isfinite(val).all()):
+        raise RuntimeError(f"GC epoch lines {epochs}, step losses {losses}")
+    blob = torch.load(os.path.join(tmp, "ckpt", "smoke_gc", "groupcomm_v2_epoch_1"),
+                      map_location="cpu", weights_only=True)
+    checks = step_checks(torch, np, "groupcomm_v2", hp, blob["model"], _tr_sources(np, root),
+                         device, [("fma", None), ("xla", None)], reps,
+                         mixture_consistency="uniform")
+    return dict(step_losses=losses, val_sisdri=val, train_launches=launches, **checks)
 
 
 def main() -> int:
@@ -389,13 +679,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     import numpy as np
-    from scipy.io import wavfile
 
-    from sudo_rm_rf_tpu_torch import models
-    from sudo_rm_rf_tpu_torch.cli.separate import main as separate_main
-    from sudo_rm_rf_tpu_torch.data.base import read_wav
-    from sudo_rm_rf_tpu_torch.inference import separate_file
-    from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
+    from sudo_rm_rf_tpu_torch.data.synthetic import write_wham_corpus
     from sudo_rm_rf_tpu_torch.ops import _build
     from sudo_rm_rf_tpu_torch.ops import uconv as U
 
@@ -433,149 +718,37 @@ def main() -> int:
             raise RuntimeError("the GEMM kernels hold no tensor-core instruction")
 
     # 3. the kernel against its plain version
-    kernel_row = {}
-    for b, co, ci, t, depth in BLOCK_SHAPES:
-        p = block_params(torch, depth, ci, co, seed=0)
-        x = torch.randn(b, co, t, generator=torch.Generator().manual_seed(1)).cuda()
-        got = U.fused_uconv_block(x, p, depth)
-        torch.cuda.synchronize()
-        want = U.uconv_block_reference(x, p, depth)
-        err = (got - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        print(f"K1 {(b, co, ci, t, depth)}: max_abs_err {err:.3e} "
-              f"(relative to max |plain| {rel:.3e})")
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-        if not torch.equal(got, U.fused_uconv_block(x, p, depth)):
-            raise RuntimeError(f"K1 {(b, co, ci, t, depth)}: two calls differ")
-        if (co, ci, t, depth) == (256, 512, 3200, 5):
-            ms = {name: time_ms(torch, lambda f=f: f(x, p, depth)) for name, f in (
-                ("kernel", U.fused_uconv_block), ("fma", U.uconv_block_fma),
-                ("plain", U.uconv_block_reference))}
-            print(f"K1 flagship B={b} ms (median of 25): kernel {ms['kernel']:.4f} "
-                  f"fma {ms['fma']:.4f} plain {ms['plain']:.4f}")
-            if b == BATCH:  # the serving path's shape
-                kernel_row = dict(max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
-                                  **k1_bound(b, co, ci, t, depth))
-                parts = device_ms_by_kernel(torch, lambda: U.fused_uconv_block(x, p, depth), 20)
-                print("K1 B=4 device ms per call by part (torch.profiler, 20 calls): "
-                      + (", ".join(f"{k} {parts[k]:.4f}" for k in K1_PARTS if k in parts)
-                         or "not measured (no device time in the trace)"))
-                acc_in = torch.randn(b, ci, t, generator=torch.Generator().manual_seed(2)).cuda()
-                two = lambda: (torch.matmul(p["proj_w"], x), torch.matmul(p["res_w"], acc_in))
-                lib_ms = time_ms(torch, two)
-                torch.backends.cuda.matmul.allow_tf32 = True
-                lib_tf32_ms = time_ms(torch, two)
-                torch.backends.cuda.matmul.allow_tf32 = False
-                print(f"K1 B=4 yardstick, torch.matmul of the same two products: fp32 "
-                      f"{lib_ms:.4f} ms, TF32 (one pass, ~3 digits) {lib_tf32_ms:.4f} ms")
-                print(f"K1 B=4 bound {kernel_row['bound_ms']:.4f} ms (3xTF32 tensor cores, "
-                      f"{kernel_row['bound_by']}; share {kernel_row['bound_ms'] / ms['kernel']:.1%}), "
-                      f"{kernel_row['bound_fp32_simt_ms']:.4f} ms on the fp32 pipes (share "
-                      f"{kernel_row['bound_fp32_simt_ms'] / ms['kernel']:.1%})")
-                kernel_row.update(library_ms=lib_ms, library_tf32_ms=lib_tf32_ms,
-                                  library_call="torch.matmul of the proj and res products",
-                                  parts_ms={k: parts.get(k) for k in K1_PARTS},
-                                  bit_identical=True, tensor_core_instructions=hmma)
+    k1 = k1_phase(torch, U, _build.load_kernels(), hmma)
 
-    # 4. the serving path through the CLI
-    chunk = int(CHUNK_SECONDS * FS)
-    rng = np.random.default_rng(0)
+    # 4. and 5. the serving paths through the CLI
     with tempfile.TemporaryDirectory() as tmp:
-        model = models.get_model("relu", **FLAGSHIP, device="cuda",
-                                 generator=torch.Generator().manual_seed(0))
-        model.eval()
-        ckpt = os.path.join(tmp, "u16_512.pt")
-        torch.save(model.state_dict(), ckpt)
-        wavs, batches = [], 0
-        for sec in WAV_SECONDS:
-            n = int(sec * FS)
-            tt = np.arange(n) / FS
-            mix = (0.3 * np.sin(2 * np.pi * 220 * tt) + 0.2 * np.sin(2 * np.pi * 1330 * tt)
-                   + 0.05 * rng.standard_normal(n))
-            path = os.path.join(tmp, f"mix_{int(sec)}s.wav")
-            wavfile.write(path, FS, (mix * 32767).astype(np.int16))
-            wavs.append((path, n))
-            batches += n_forward_batches(n, chunk, BATCH)
-        out_dir = os.path.join(tmp, "separated")
-        argv = ["--checkpoint", ckpt, "--model_type", "relu", "--input",
-                *(w for w, _ in wavs), "--out_dir", out_dir, "--device", "cuda",
-                "--batch_chunks", str(BATCH), "-fs", str(FS),
-                "--chunk_seconds", str(CHUNK_SECONDS)]
-        for key in ("out_channels", "in_channels", "num_blocks",
-                    "upsampling_depth", "enc_kernel_size", "enc_num_basis"):
-            argv += [f"--{key}", str(FLAGSHIP[key])]
-        U.fused_uconv_block.launches = 0
+        serve = serve_phase(torch, np, tmp, "relu", FLAGSHIP)
+        serve_gc = serve_phase(torch, np, tmp, "groupcomm_v2", GROUPCOMM,
+                               ["--mixture_consistency", "uniform"])
+    print(json.dumps({"serve": {"relu": serve, "groupcomm_v2": serve_gc}}))
+
+    # 6. and 7. the training paths
+    with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        if separate_main(argv) != 0:
-            raise RuntimeError("sudo-torch-separate returned non-zero")
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-        launches = U.fused_uconv_block.launches
-        print(f"CLI: {len(wavs)} files, {batches} forward batches, "
-              f"{launches} kernel launches, {cli_s:.2f} s")
-        if launches != FLAGSHIP["num_blocks"] * batches:
-            raise RuntimeError(f"expected {FLAGSHIP['num_blocks'] * batches} "
-                               f"kernel launches, counted {launches}")
-        for path, n in wavs:
-            stem = os.path.splitext(os.path.basename(path))[0]
-            for s in (1, 2):
-                sr, est = read_wav(os.path.join(out_dir, f"{stem}_s{s}.wav"))
-                if sr != FS or est.shape != (n,) or not np.isfinite(est).all():
-                    raise RuntimeError(f"{stem}_s{s}: sr {sr} shape {est.shape}")
-                if not np.abs(est).max() > 0:
-                    raise RuntimeError(f"{stem}_s{s} is silent")
-        # one file again, through the plain blocks: the int16 outputs agree
-        plain_dir = os.path.join(tmp, "plain")
-        separate_file(model, wavs[1][0], plain_dir, fs=FS,
-                      chunk_seconds=CHUNK_SECONDS, batch_chunks=BATCH,
-                      forward_fn=functools.partial(improved_forward_fast, model, impl="xla"))
-        stem = os.path.splitext(os.path.basename(wavs[1][0]))[0]
-        for s in (1, 2):
-            a = wavfile.read(os.path.join(out_dir, f"{stem}_s{s}.wav"))[1].astype(np.int32)
-            c = wavfile.read(os.path.join(plain_dir, f"{stem}_s{s}.wav"))[1].astype(np.int32)
-            lsb = int(np.abs(a - c).max())
-            print(f"CLI {stem}_s{s}: kernel vs plain blocks max diff {lsb} LSB")
-            if lsb > 1:
-                raise RuntimeError(f"{stem}_s{s}: kernel and plain outputs differ by {lsb} LSB")
+        root = write_wham_corpus(os.path.join(tmp, "wham"), TRAIN_FILES, VAL_FILES,
+                                 CHUNK_SECONDS, FS, seed=0)
+        print(f"train: corpus of {TRAIN_FILES} + {VAL_FILES} wavs of {CHUNK_SECONDS} s "
+              f"in {time.perf_counter() - t0:.1f} s")
+        train = train_phase(torch, np, tmp, root, FLAGSHIP)
+        train_gc = gc_train_phase(torch, np, tmp, root, GROUPCOMM)
 
-        # fidelity and speed of one bs4 4 s forward
-        x = torch.from_numpy(rng.standard_normal((BATCH, 1, chunk)).astype(np.float32)).cuda()
-        ker = improved_forward_fast(model, x, impl="kernel")
-        ref = improved_forward_fast(model, x, impl="xla")
-        if ker.shape != (BATCH, 2, chunk) or not torch.isfinite(ker).all():
-            raise RuntimeError(f"bad forward output {tuple(ker.shape)}")
-        fid = fidelity_db(np, ref.double().cpu().numpy(), ker.double().cpu().numpy())
-        print(f"U16/512 bs{BATCH} fp32 forward fidelity kernel vs xla: {fid:.2f} dB")
-        if not fid >= MIN_FIDELITY_DB:
-            raise RuntimeError(f"fidelity {fid:.2f} dB < {MIN_FIDELITY_DB} dB")
-        audio_s = BATCH * CHUNK_SECONDS
-        fwd_ms = {}
-        for impl in ("kernel", "fma", "xla"):
-            torch.cuda.reset_peak_memory_stats()
-            ms = time_ms(torch, lambda i=impl: improved_forward_fast(model, x, impl=i), reps=20)
-            fwd_ms[impl] = ms
-            peak = torch.cuda.max_memory_allocated() / 2**20
-            print(f"U16/512 bs{BATCH} fp32 forward impl={impl}: {ms:.3f} ms, "
-                  f"{audio_s / (ms / 1e3):.1f} audio-s/s, peak {peak:.0f} MiB")
-        by_kernel = device_ms_by_kernel(
-            torch, lambda: improved_forward_fast(model, x, impl="kernel"), 5)
-        busy = sum(by_kernel.values())
-        print(f"U16/512 bs{BATCH} kernel forward device ms by kernel (torch.profiler, 5 "
-              f"forwards): " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(by_kernel.items()))
-              + f"; busy {busy:.3f} of {fwd_ms['kernel']:.3f} ms, idle "
-              f"{1 - busy / fwd_ms['kernel']:.1%}")
-
-    # 5. the training path
-    with tempfile.TemporaryDirectory() as tmp:
-        train = train_phase(torch, np, tmp, FLAGSHIP)
-
-    print(json.dumps({"train": train}))
+    print(json.dumps({"train": train, "train_gc": train_gc}))
+    flagship = k1["flagship"]
     print(json.dumps({"kernels": [{
         "name": "fused_uconv_block", "route": "cuda",
         "source": "sudo_rm_rf_tpu_torch/csrc/uconv.cu",
         "replaces": "sudo_rm_rf_tpu/ops/pallas/uconv.py:370",
-        "launches": launches, "launches_per_forward": FLAGSHIP["num_blocks"],
-        "launches_training_path": train["train_launches"], **kernel_row,
+        "launches": serve["launches"], "launches_per_forward": serve["launches_per_forward"],
+        "launches_gc": serve_gc["launches"],
+        "launches_per_gc_forward": serve_gc["launches_per_forward"],
+        "launches_training_path": train["train_launches"],
+        "launches_gc_training_path": train_gc["train_launches"],
+        **flagship, "gc_shape": k1["groupcomm"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

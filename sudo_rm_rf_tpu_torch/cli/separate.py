@@ -3,10 +3,14 @@
 Counterpart of ``sudo_rm_rf_tpu/cli/separate.py`` in its overlap-add mode.
 Takes a ``.pt`` holding a state_dict (the published format, or one written
 from JAX params with ``convert.load_jax_params``) or a whole pickled module,
-and serves it through ``improved_forward_fast`` on ``--device``:
+and serves it on ``--device`` through ``improved_forward_fast`` (model types
+``relu``/``improved``) or ``groupcomm_forward_fast`` (``groupcomm_v2``):
 
     sudo-torch-separate --checkpoint Improved_Sudormrf_U16_Bases512_WSJ02mix.pt \
         --out_channels 256 --input mix1.wav mix2.wav --out_dir ./separated
+    sudo-torch-separate --checkpoint groupcomm_u16_512.pt \
+        --model_type groupcomm_v2 --out_channels 256 --group_size 16 \
+        --mixture_consistency uniform --input mix1.wav --out_dir ./separated
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ def main(argv=None):
     p.add_argument("--chunk_seconds", type=float, default=4.0)
     p.add_argument("--batch_chunks", type=int, default=8)
     p.add_argument("--num_sources", type=int, default=2)
+    p.add_argument("--mixture_consistency", default=None,
+                   choices=[None, "uniform", "magsq"])
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on; never falls back to the CPU")
     p.add_argument("--reference_root", default=None,
@@ -37,6 +43,7 @@ def main(argv=None):
     p.add_argument("--upsampling_depth", type=int, default=5)
     p.add_argument("--enc_kernel_size", type=int, default=21)
     p.add_argument("--enc_num_basis", type=int, default=512)
+    p.add_argument("--group_size", type=int, default=16)
     args = p.parse_args(argv)
     if not args.checkpoint.endswith(".pt"):
         p.error("--checkpoint must be a torch .pt file")
@@ -46,8 +53,12 @@ def main(argv=None):
     from sudo_rm_rf_tpu_torch import models
     from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import load_pt_file
     from sudo_rm_rf_tpu_torch.inference import separate_file
-    from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
+    from sudo_rm_rf_tpu_torch.models.fast_inference import (
+        groupcomm_forward_fast,
+        improved_forward_fast,
+    )
 
+    models.check_model_type(args.model_type)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available")
@@ -58,18 +69,23 @@ def main(argv=None):
         enc_kernel_size=args.enc_kernel_size, enc_num_basis=args.enc_num_basis,
         num_sources=args.num_sources,
     )
+    fast = improved_forward_fast
+    if args.model_type == "groupcomm_v2":
+        hp["group_size"] = args.group_size
+        fast = groupcomm_forward_fast
     sd, attrs = load_pt_file(args.checkpoint, reference_root=args.reference_root)
     hp.update(attrs)
     model = models.get_model(args.model_type, **hp, device=device)
     model.load_state_dict(sd, strict=True)
     model.eval()
-    forward = functools.partial(improved_forward_fast, model)
 
     for path in args.input:
         outs = separate_file(
             model, path, args.out_dir, fs=args.fs,
             chunk_seconds=args.chunk_seconds, num_sources=args.num_sources,
-            batch_chunks=args.batch_chunks, forward_fn=forward,
+            batch_chunks=args.batch_chunks,
+            mixture_consistency=args.mixture_consistency,
+            forward_fn=functools.partial(fast, model),
         )
         print(f"{path} -> {outs}")
     return 0

@@ -106,6 +106,10 @@ class ModelConfig:
         )
         if self.model_type in ("relu", "improved"):
             kwargs.update(block_impl=self.block_impl)
+        elif self.model_type == "groupcomm_v2":
+            kwargs.update(group_size=self.group_size,
+                          in_audio_channels=self.in_audio_channels,
+                          block_impl=self.block_impl)
         return models.get_model(self.model_type, **kwargs, generator=generator,
                                 device=device)
 

@@ -3,7 +3,9 @@
 
   * the recording is cut into fixed-length 50%-overlapping chunks, run in
     fixed-size batches (the last one padded with zero chunks);
-  * each chunk is standardized before the model and de-standardized after;
+  * each chunk is standardized before the model and de-standardized after,
+    optionally with its estimates projected onto its mixture in between
+    (mixture consistency);
   * source permutations are re-aligned between consecutive chunks by
     maximizing overlap correlation, on the host;
   * chunks are blended with a periodic Hann window (COLA at 50% hop), the
@@ -19,6 +21,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from sudo_rm_rf_tpu_torch.losses import mixture_consistency
+
 
 def _hann(n: int) -> np.ndarray:
     # periodic Hann: COLA (sums to 1) at hop n//2
@@ -33,7 +37,9 @@ class OverlapAddSeparator:
         where the chunks run.
       chunk_samples: model input length per chunk (e.g. 4 s * fs).
       batch_chunks: chunks per forward (static batch).
-      mixture_consistency: not ported yet; must be None.
+      mixture_consistency: optional 'uniform' / 'magsq' projection of each
+        chunk's estimates onto its (standardized) mixture, as the reference
+        applies to GroupComm outputs.
       forward_fn: (B, 1, T) -> (B, S, T) in place of ``model`` — e.g.
         ``functools.partial(models.fast_inference.improved_forward_fast, model)``.
     """
@@ -47,9 +53,10 @@ class OverlapAddSeparator:
         mixture_consistency: Optional[str] = None,
         forward_fn: Optional[Callable] = None,
     ):
-        if mixture_consistency is not None:
-            raise NotImplementedError(
-                "mixture_consistency is not ported yet; pass None")
+        if mixture_consistency not in (None, "uniform", "magsq"):
+            raise ValueError(f"mixture_consistency {mixture_consistency!r} not in "
+                             "(None, 'uniform', 'magsq')")
+        self.mixture_consistency = mixture_consistency
         self._apply = forward_fn or model
         self.device = next(model.parameters()).device
         self.chunk = int(chunk_samples)
@@ -65,6 +72,8 @@ class OverlapAddSeparator:
         std = x.std(dim=-1, keepdim=True)  # ddof=1
         xn = (x - mean) / (std + 1e-9)
         est = self._apply(xn[:, None, :])
+        if self.mixture_consistency is not None:
+            est = mixture_consistency(est, xn[:, None, :], self.mixture_consistency)
         # de-standardize back to the input scale
         return est * std[:, None, :] + mean[:, None, :]
 

@@ -2,24 +2,42 @@
 
 Each model is an ``nn.Module`` whose ``state_dict()`` names are the torch
 reference's, so the published ``.pt`` checkpoints load strictly and
-``sudo_rm_rf_tpu.convert.torch_key_to_flax_path`` maps every name to the JAX
-package's param path. `get_model(name, **overrides)` mirrors the JAX
-package's registry; this slice holds the Improved SuDoRM-RF only.
+``sudo_rm_rf_tpu_torch/convert/torch_checkpoint.py::torch_key_to_flax_path``
+maps every name to the JAX package's param path. `get_model(name,
+**overrides)` mirrors the JAX package's registry; the model types the port
+does not have yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
+from sudo_rm_rf_tpu_torch.models.groupcomm_sudormrf import GroupCommSuDORMRF
 from sudo_rm_rf_tpu_torch.models.improved_sudormrf import SuDORMRFImproved
 
 _REGISTRY = {
     "relu": SuDORMRFImproved,
     "improved": SuDORMRFImproved,
+    "groupcomm_v2": GroupCommSuDORMRF,
 }
+# model types of the JAX package still to port, by ROADMAP queue 1 item
+_WAITING = {
+    "causal": 9,
+    **dict.fromkeys(("softmax", "attention", "attention_v2", "attention_v3",
+                     "convtasnet", "dprnn", "demucs", "tdcn", "residual_tdcn",
+                     "sepformer"), 12),
+}
+
+
+def check_model_type(name: str) -> None:
+    """Raise unless the port has the model type ``name``."""
+    if name in _WAITING:
+        raise NotImplementedError(
+            f"model_type {name!r} is not ported yet (ROADMAP queue 1, item {_WAITING[name]})")
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
 
 
 def get_model(name: str, **kwargs):
     """Build a model by reference-compatible name."""
-    if name not in _REGISTRY:
-        raise KeyError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
+    check_model_type(name)
     return _REGISTRY[name](**kwargs)
 
 
-__all__ = ["SuDORMRFImproved", "get_model"]
+__all__ = ["GroupCommSuDORMRF", "SuDORMRFImproved", "check_model_type", "get_model"]

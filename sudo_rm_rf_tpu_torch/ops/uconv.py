@@ -71,12 +71,37 @@ def uconv_block_reference(x, params, depth: int):
     return out + x
 
 
+def dw_conv_s1(v, w):
+    """Depthwise k=5 conv, stride 1, pad 2, as 5 shifted multiply-adds.
+    v (B, C, T); w (C, 5)."""
+    tt = v.shape[-1]
+    vp = torch.nn.functional.pad(v, (2, 2))
+    return sum(w[None, :, j : j + 1] * vp[..., j : j + tt] for j in range(5))
+
+
+def dw_conv_s2(v, w):
+    """Depthwise k=5 conv, stride 2, pad 2, phase-split into the even and
+    odd planes of v (B, C, T), T even; w (C, 5)."""
+    b, c, t = v.shape
+    th = t // 2
+    vr = v.reshape(b, c, th, 2)
+    ve_p = torch.nn.functional.pad(vr[..., 0], (1, 1))
+    vo_p = torch.nn.functional.pad(vr[..., 1], (1, 0))
+    wc = w[None, :, :, None]
+    return (
+        wc[:, :, 0] * ve_p[..., 0:th]
+        + wc[:, :, 1] * vo_p[..., 0:th]
+        + wc[:, :, 2] * ve_p[..., 1 : th + 1]
+        + wc[:, :, 3] * vo_p[..., 1:]
+        + wc[:, :, 4] * ve_p[..., 2 : th + 2]
+    )
+
+
 def uconv_block_fma(x, params, depth: int):
     """Plain block with the kernel's algebraic optimizations: depthwise convs
     as 5 shifted multiply-adds (stride 2 phase-split into even and odd
     planes), and each ladder GlobLN folded into the next conv's input as
     per-channel (a, b), with one-pass sum / sum-of-squares statistics."""
-    b, _, _ = x.shape
     ci = params["proj_w"].shape[0]
     y = torch.matmul(params["proj_w"], x) + params["proj_b"][None, :, None]
     y = glob_ln(y, params["proj_g"], params["proj_beta"])
@@ -90,31 +115,12 @@ def uconv_block_fma(x, params, depth: int):
         var = torch.clamp(s2 / n - mean * mean, min=0.0)
         return mean, torch.rsqrt(var + EPS)
 
-    def conv_s1(v, w):  # v (B, C, T); w (C, 5)
-        tt = v.shape[-1]
-        vp = torch.nn.functional.pad(v, (2, 2))
-        return sum(w[None, :, j : j + 1] * vp[..., j : j + tt] for j in range(5))
-
-    def conv_s2(v, w):
-        th = v.shape[-1] // 2
-        vr = v.reshape(b, ci, th, 2)
-        ve_p = torch.nn.functional.pad(vr[..., 0], (1, 1))
-        vo_p = torch.nn.functional.pad(vr[..., 1], (1, 0))
-        wc = w[None, :, :, None]
-        return (
-            wc[:, :, 0] * ve_p[..., 0:th]
-            + wc[:, :, 1] * vo_p[..., 0:th]
-            + wc[:, :, 2] * ve_p[..., 1 : th + 1]
-            + wc[:, :, 3] * vo_p[..., 1:]
-            + wc[:, :, 4] * ve_p[..., 2 : th + 2]
-        )
-
     a = torch.ones((1, ci, 1), dtype=y.dtype, device=y.device)
     bb = torch.zeros((1, ci, 1), dtype=y.dtype, device=y.device)
     cur, raw, folds = y, [], []
     for k in range(depth):
         x_in = a * cur + bb
-        o = conv_s1(x_in, params["dw_w"][k]) if k == 0 else conv_s2(x_in, params["dw_w"][k])
+        o = (dw_conv_s1 if k == 0 else dw_conv_s2)(x_in, params["dw_w"][k])
         o = o + params["dw_b"][k][None, :, None]
         mean, inv = stats(o, ci * o.shape[-1])
         g = params["dw_g"][k].float()[None, :, None]

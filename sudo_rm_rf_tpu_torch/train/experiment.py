@@ -26,6 +26,7 @@ import torch
 
 from sudo_rm_rf_tpu_torch import losses as losses_lib
 from sudo_rm_rf_tpu_torch.config import ExperimentConfig
+from sudo_rm_rf_tpu_torch.models import check_model_type
 from sudo_rm_rf_tpu_torch.train import augment as augment_lib
 from sudo_rm_rf_tpu_torch.train.trainer import Trainer, TrainerConfig, check_config
 from sudo_rm_rf_tpu_torch.utils import (
@@ -41,6 +42,7 @@ RECIPES = ("WHAM", "LIBRI2MIX")
 def check_supported(config: ExperimentConfig) -> None:
     """Raise for an option the port does not take (yet)."""
     m, t = config.model, config.train
+    check_model_type(m.model_type)
     if m.block_impl == "kernel":
         raise ValueError("block_impl 'kernel' is forward-only: train with "
                          "block_impl 'fma' or 'xla'")

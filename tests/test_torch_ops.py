@@ -98,8 +98,9 @@ def test_overlap_and_add(step):
 
 
 def test_port_imports_no_jax_and_never_falls_back(tmp_path):
-    """In a fresh interpreter, the whole port imports, runs a toy forward,
-    separates a tiny wav through ``sudo-torch-separate`` and trains one epoch
+    """In a fresh interpreter, the whole port imports, runs a toy Improved
+    and GroupComm forward in every form, separates a tiny wav through
+    ``sudo-torch-separate`` with each model type and trains one epoch
     through ``sudo-torch-train`` on the CPU without importing JAX or any
     module of the JAX package; asking for CUDA where there is none raises."""
     code = textwrap.dedent("""
@@ -113,8 +114,10 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
         from sudo_rm_rf_tpu_torch.convert import jax_params, torch_checkpoint
         from sudo_rm_rf_tpu_torch.data import base
         from sudo_rm_rf_tpu_torch.inference import overlap_add
-        from sudo_rm_rf_tpu_torch.models import fast_inference, improved_sudormrf, layers
-        from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
+        from sudo_rm_rf_tpu_torch.models import (
+            fast_inference, groupcomm_sudormrf, improved_sudormrf, layers)
+        from sudo_rm_rf_tpu_torch.models.fast_inference import (
+            GC_IMPLS, groupcomm_forward_fast, improved_forward_fast)
         from sudo_rm_rf_tpu_torch.ops import _build, conv, frame, norm, pad, resample, uconv
         from sudo_rm_rf_tpu_torch import config, losses, train, utils
         from sudo_rm_rf_tpu_torch.cli import args, train as train_cli
@@ -128,17 +131,24 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
         x = torch.randn(1, 1, 100, generator=torch.Generator().manual_seed(0))
         for impl in ("kernel", "fma", "xla"):
             assert improved_forward_fast(m, x, impl=impl).shape == (1, 2, 100)
+        gc = models.get_model("groupcomm_v2", **hp, group_size=4)
+        for impl in GC_IMPLS:
+            assert groupcomm_forward_fast(gc, x, impl=impl).shape == (1, 2, 100)
         tmp = sys.argv[1]
-        ckpt, wav = os.path.join(tmp, "m.pt"), os.path.join(tmp, "mix.wav")
-        torch.save(m.state_dict(), ckpt)
+        wav = os.path.join(tmp, "mix.wav")
         wavfile.write(wav, 8000, (np.random.default_rng(0).standard_normal(900)
                                   * 3000).astype(np.int16))
-        argv = ["--checkpoint", ckpt, "--input", wav, "--out_dir", tmp,
-                "--device", "cpu", "--chunk_seconds", "0.05", "--batch_chunks", "2"]
-        for k, v in hp.items():
-            argv += [f"--{k}", str(v)]
-        assert separate.main(argv) == 0
-        assert os.path.exists(os.path.join(tmp, "mix_s2.wav"))
+        for name, model, extra in (("relu", m, []), ("groupcomm_v2", gc, [
+                "--group_size", "4", "--mixture_consistency", "uniform"])):
+            ckpt, out = os.path.join(tmp, f"{name}.pt"), os.path.join(tmp, name)
+            torch.save(model.state_dict(), ckpt)
+            argv = ["--checkpoint", ckpt, "--model_type", name, "--input", wav,
+                    "--out_dir", out, "--device", "cpu", "--chunk_seconds", "0.05",
+                    "--batch_chunks", "2", *extra]
+            for k, v in hp.items():
+                argv += [f"--{k}", str(v)]
+            assert separate.main(argv) == 0
+            assert os.path.exists(os.path.join(out, "mix_s2.wav"))
         assert uconv.fused_uconv_block.launches == 0
         root = synthetic.write_wham_corpus(os.path.join(tmp, "wham"), n_train=2,
                                            n_val=2, seconds=0.25)

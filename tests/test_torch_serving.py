@@ -62,9 +62,11 @@ def test_overlap_add_separator_matches_jax(length):
 
 
 def test_overlap_add_separator_refuses_mixture_consistency():
-    with pytest.raises(NotImplementedError):
+    """Only the 'uniform' and 'magsq' weightings exist (their parity with the
+    JAX separator is in tests/test_torch_groupcomm.py)."""
+    with pytest.raises(ValueError, match="mixture_consistency"):
         OverlapAddSeparator(models.get_model("relu", **HP), CHUNK,
-                            mixture_consistency="uniform")
+                            mixture_consistency="uniformly")
 
 
 def test_read_wav_matches_jax(tmp_path):

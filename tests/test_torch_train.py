@@ -506,6 +506,9 @@ def test_run_experiment_stops_early_on_a_plateau(tmp_path, monkeypatch):
     (["--optimizer", "radam_cosine"], NotImplementedError),
     (["--upload_dtype", "bfloat16"], NotImplementedError),
     (["--train", "FUSS"], NotImplementedError),
+    (["--model_type", "causal"], NotImplementedError),
+    (["--model_type", "sepformer"], NotImplementedError),
+    (["--model_type", "groupcomm_v2", "--block_impl", "kernel"], ValueError),
     (["--device", "cuda"], RuntimeError),
 ])
 def test_cli_train_rejects_what_the_port_does_not_take(tmp_path, extra, error, monkeypatch):
