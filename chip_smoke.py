@@ -10,14 +10,16 @@
    (failing if it is 0).
 3. The U-ConvBlock kernel (K1) against its plain version at the flagship
    block shape (Co=256, Ci=512, T=3200, depth 5; B=1, 4, 8), at two ragged
-   ones and at the GroupComm folded shape (B*G=64, Co=16, Ci=32, T=3200,
-   depth 5), within rtol=atol=1e-4; two calls on one input must be
-   bit-identical. At the flagship shape, time the kernel, ``uconv_block_fma``
-   and ``uconv_block_reference`` (CUDA events, median of 25 after warm-up).
-   At B=4 and at the GroupComm shape, also: the device time of each of K1's
-   parts and the GEMM tile width taken (``torch.profiler``), K1's bound, and
-   the ``torch.matmul`` time of the same two products (TF32 off, and
-   labelled, on), a yardstick the port never calls.
+   ones, at the GroupComm folded shape (B*G=64, Co=16, Ci=32, T=3200,
+   depth 5) and at the U36 WHAMR! 16 kHz block (Co=Ci=512, T=6400, depth 5;
+   B=1, 4), within rtol=atol=1e-4; two calls on one input must be
+   bit-identical. At the flagship and U36 shapes, time the kernel,
+   ``uconv_block_fma`` and ``uconv_block_reference`` (CUDA events, median of
+   25 after warm-up). At B=4 of both and at the GroupComm shape, also: the
+   device time of each of K1's parts and the GEMM tile width taken
+   (``torch.profiler``), K1's bound, and the ``torch.matmul`` time of the
+   same two products (TF32 off, and labelled, on), a yardstick the port
+   never calls.
 4. The serving path: ``sudo-torch-separate`` with a seeded random Improved
    SuDoRM-RF U16/512 checkpoint on three synthetic 8 kHz wavs (3 s, 10 s,
    25 s), batch 4. Checks the outputs, that the kernel ran 16 times per
@@ -49,9 +51,26 @@
    groupcomm_v2 --block_impl fma --mixture_consistency uniform`` for one
    epoch (finite losses, val SISDRi printed, 0 K1 launches), one step card
    vs CPU (1e-3), and the step times of the fma and xla blocks in fp32.
-8. Print a JSON line of the training results and one of kernel results, then
-   ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
-   exits non-zero.
+8. Evaluation of the published Improved SuDoRM-RF U36/Bases4096 WHAMR!
+   configuration (out 512, in 512, 36 blocks, 4096 bases; seeded random
+   weights) at 16 kHz: ``sudo-torch-evaluate`` on a synthetic WHAMR-layout
+   test split of 8 files, in 4 s crops at batch 4 and then in full length
+   on two files of which one is longer than the chunk; K1 counted 36 times
+   per forward batch, every summary key present and finite. One batch's
+   SI-SDRi through the kernel and the ``xla`` blocks (<= 0.01 dB apart),
+   kernel-vs-xla fidelity of a bs4 forward (>= 80 dB), the bs4 fp32
+   forward time of each block form, the kernel forward's device idle share
+   and top kernels, and the time of one batch's BSS-eval (512 and 1 taps)
+   and SI-SDRi.
+9. The WHAMR! (noisy_reverberant, U16 out 256 / 2048 bases, 8 kHz) and FUSS
+   (U16 out 128 / 512 bases, 4 sources, 16 kHz, uniform mixture
+   consistency) recipes at the JAX package's run configurations, batch 8:
+   one ``sudo-torch-train`` epoch each on a synthetic corpus (finite losses,
+   the val metrics printed, 0 K1 launches), one step card vs CPU (1e-3)
+   and the fp32 ``fma`` step time.
+10. Print JSON lines of the serving, training, evaluation and recipe
+   results and one of kernel results, then ``{"ok": true, "device": ...}``
+   as the last line. Any failure raises and exits non-zero.
 """
 
 from __future__ import annotations
@@ -82,9 +101,36 @@ GROUPCOMM = dict(FLAGSHIP, group_size=16)
 # one with T % 4 != 0, which takes the kernel's 4-byte load paths; and the
 # GroupComm block at bs4 with its 16 groups folded into the batch
 GC_BLOCK = (BATCH * GROUPCOMM["group_size"], 256 // 16, 512 // 16, 3200, 5)
+# the published Improved SuDoRM-RF U36/Bases4096 WHAMR! configuration
+# (sudo_rm_rf_tpu/utils/benchmark.py zoo row sudormrf_R36_B4096), served on
+# 4 s crops at 16 kHz: its blocks run at (B, 512, 512, 6400, 5)
+U36 = dict(out_channels=512, in_channels=512, num_blocks=36, upsampling_depth=5,
+           enc_kernel_size=21, enc_num_basis=4096, num_sources=2)
+FS16 = 16000
+U36_BLOCK = (BATCH, 512, 512, 6400, 5)
 BLOCK_SHAPES = [(1, 256, 512, 3200, 5), (4, 256, 512, 3200, 5),
                 (8, 256, 512, 3200, 5), (2, 20, 36, 648, 4), (2, 70, 100, 334, 2),
-                GC_BLOCK]
+                GC_BLOCK, (1, 512, 512, 6400, 5), U36_BLOCK]
+# the evaluation split: 16 kHz WHAMR-layout test files, two of them longer
+# than the 4 s chunk (the first one is the full-length phase's)
+EVAL_SECONDS = (10.0, 4.0, 4.0, 4.0, 4.5, 4.0, 4.0, 4.0)
+EVAL_FULL_LENGTH_FILES = 2
+MAX_SISDRI_DIFF_DB = 0.01
+# the JAX package's own run configurations of the two recipes
+# (docs/runs/whamr_u16_synth/hparams.json, docs/runs/fuss_u16_synth/hparams.json)
+RECIPE_RUNS = {
+    "WHAMR": dict(hp=dict(out_channels=256, in_channels=512, num_blocks=16,
+                          upsampling_depth=5, enc_kernel_size=21, enc_num_basis=2048,
+                          num_sources=2),
+                  fs=8000, loss_clamp=50.0, mixture_consistency=None,
+                  argv=["--separation_task", "noisy_reverberant"]),
+    "FUSS": dict(hp=dict(out_channels=128, in_channels=512, num_blocks=16,
+                         upsampling_depth=5, enc_kernel_size=21, enc_num_basis=512,
+                         num_sources=4),
+                 fs=16000, loss_clamp=0.0, mixture_consistency="uniform",
+                 argv=["--max_num_sources", "4"]),
+}
+RECIPE_BATCH, RECIPE_STEP_REPS = 8, 5
 WAV_SECONDS = (3.0, 10.0, 25.0)
 MIN_FIDELITY_DB = 80.0
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -259,7 +305,8 @@ def si_sdr_db(np, est, ref) -> float:
 
 def k1_phase(torch, U, lib, hmma) -> dict:
     """Phase 3: K1 against its plain version at every shape; the profiled
-    rows at the flagship B=4 and the GroupComm folded shape."""
+    rows at the flagship B=4, the GroupComm folded shape and the U36 WHAMR!
+    block at B=4."""
     rows = {}
     for b, co, ci, t, depth in BLOCK_SHAPES:
         p = block_params(torch, depth, ci, co, seed=0)
@@ -275,6 +322,7 @@ def k1_phase(torch, U, lib, hmma) -> dict:
         if not torch.equal(got, U.fused_uconv_block(x, p, depth)):
             raise RuntimeError(f"K1 {(b, co, ci, t, depth)}: two calls differ")
         name = ("flagship" if (co, ci, t, depth) == (256, 512, 3200, 5)
+                else "u36" if (co, ci, t, depth) == U36_BLOCK[1:]
                 else "groupcomm" if (b, co, ci, t, depth) == GC_BLOCK else None)
         if name is None:
             continue
@@ -284,8 +332,8 @@ def k1_phase(torch, U, lib, hmma) -> dict:
         label = f"K1 {name} B={b}"
         print(f"{label} ms (median of 25): kernel {ms['kernel']:.4f} "
               f"fma {ms['fma']:.4f} plain {ms['plain']:.4f}")
-        if name == "flagship" and b != BATCH:
-            continue  # the profiled rows are the serving path's shapes
+        if name in ("flagship", "u36") and b != BATCH:
+            continue  # the profiled rows are the serving paths' shapes
         bound = k1_bound(b, co, ci, t, depth)
         row = dict(shape=f"B,Co,Ci,T,depth={b},{co},{ci},{t},{depth}", max_abs_err=err,
                    ms=ms["kernel"], plain_ms=ms["plain"], fma_ms=ms["fma"],
@@ -469,32 +517,39 @@ def serve_phase(torch, np, tmp: str, model_type: str, hp: dict, extra_argv=(),
     return out
 
 
-def step_checks(torch, np, model_type: str, hp: dict, weights: dict, sources, device: str,
-                variants, reps: int = STEP_REPS, **trainer_cfg) -> dict:
+def step_checks(torch, np, model_type: str, hp: dict, weights: dict, batch, device: str,
+                variants, reps: int = STEP_REPS, recipe=None, label: str = "U16/512",
+                **trainer_cfg) -> dict:
     """One step of ``weights`` on the card and on the CPU from the same
     batch and draws (loss and grad norm within MAX_CARD_CPU_REL), then the
     median step time, peak memory and profile of each (block_impl,
-    compute_dtype) in ``variants``."""
+    compute_dtype) in ``variants``. ``recipe`` (``train.experiment.Recipe``)
+    gives the draws, batch preparation and loss; by default the WHAM remix
+    of a (B, 2, T) source batch."""
     from sudo_rm_rf_tpu_torch import models
     from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig, draw_remix
 
     tag = "GC " if model_type == "groupcomm_v2" else ""
-    draws = draw_remix(torch.Generator().manual_seed(7), BATCH, 2)
+    bs = (batch[0] if isinstance(batch, tuple) else batch).shape[0]
+    draw = recipe.draw if recipe else (lambda g, _: draw_remix(g, bs, 2))
+    fns = dict(loss_fn=recipe.loss_fn, prepare_batch=recipe.prepare) if recipe else {}
+    draws = draw(torch.Generator().manual_seed(7), batch)
     metrics = {}
     for dev in (device, "cpu"):
         model = models.get_model(model_type, **hp, block_impl="fma", device=dev)
         model.load_state_dict(weights)
-        tr = Trainer(model, TrainerConfig(**trainer_cfg))
-        _, m = tr.train_step(tr.init_state(), sources, draws)
+        tr = Trainer(model, TrainerConfig(**trainer_cfg), **fns)
+        _, m = tr.train_step(tr.init_state(), batch, draws)
         metrics[dev] = {k: float(v) for k, v in m.items()}
         del model, tr
     rel = {k: abs(metrics[device][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
            for k in ("loss", "grad_norm")}
-    print(f"{tag}one step card vs CPU: loss {metrics[device]['loss']:.6f} vs "
+    print(f"{tag}{label} one step card vs CPU: loss {metrics[device]['loss']:.6f} vs "
           f"{metrics['cpu']['loss']:.6f} (rel {rel['loss']:.2e}), grad norm "
           f"{metrics[device]['grad_norm']:.6f} vs {metrics['cpu']['grad_norm']:.6f} "
           f"(rel {rel['grad_norm']:.2e})")
-    if abs(metrics["cpu"]["loss"]) >= TrainerConfig().loss_clamp:
+    clamp = TrainerConfig(**trainer_cfg).loss_clamp
+    if clamp > 0 and abs(metrics["cpu"]["loss"]) >= clamp:
         raise RuntimeError("the loss clamp saturated: the comparison would be vacuous")
     if max(rel.values()) > MAX_CARD_CPU_REL:
         raise RuntimeError(f"card and CPU steps differ by {rel}")
@@ -502,14 +557,15 @@ def step_checks(torch, np, model_type: str, hp: dict, weights: dict, sources, de
     # step times, on a batch resident on the card
     steps = {}
     if device == "cuda":
-        batch = torch.from_numpy(sources).to(device)
-        audio_s = BATCH * CHUNK_SECONDS
+        on_card = (tuple(torch.from_numpy(x).to(device) for x in batch)
+                   if isinstance(batch, tuple) else torch.from_numpy(batch).to(device))
+        audio_s = bs * CHUNK_SECONDS
         for impl, dtype in variants:
             model = models.get_model(model_type, **hp, block_impl=impl, device=device)
             model.load_state_dict(weights)
-            tr = Trainer(model, TrainerConfig(compute_dtype=dtype, **trainer_cfg))
+            tr = Trainer(model, TrainerConfig(compute_dtype=dtype, **trainer_cfg), **fns)
             state, gen = tr.init_state(), torch.Generator().manual_seed(0)
-            step = lambda: tr.train_step(state, batch, draw_remix(gen, BATCH, 2))
+            step = lambda: tr.train_step(state, on_card, draw(gen, batch))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             ms = time_ms(torch, step, warmup=STEP_WARMUP, reps=reps)
@@ -524,7 +580,7 @@ def step_checks(torch, np, model_type: str, hp: dict, weights: dict, sources, de
                        device_launches=sum(counts.values()),
                        top_kernels_ms={k[:80]: v for k, v in top})
             steps[name] = row
-            print(f"{tag}train step {tag}U16/512 bs{BATCH} {name}: {ms:.3f} ms (median of "
+            print(f"{tag}train step {tag}{label} bs{bs} {name}: {ms:.3f} ms (median of "
                   f"{reps}), {row['audio_s_per_s']:.1f} audio-s/s, peak {peak:.0f} MiB; "
                   f"torch.profiler over 3 steps: device busy {busy:.3f} ms, idle "
                   f"{row['idle_share']:.1%}, {row['device_launches']:.0f} device "
@@ -672,6 +728,234 @@ def gc_train_phase(torch, np, tmp: str, root: str, hp: dict, device: str = "cuda
     return dict(step_losses=losses, val_sisdri=val, train_launches=launches, **checks)
 
 
+def _standardized_forward(torch, forward, model, impl):
+    """sudo-torch-evaluate's forward: standardize each mixture (ddof=1, eps
+    1e-9), separate through the blocks ``impl`` names, de-standardize."""
+
+    def run(mix):
+        mean, std = mix.mean(dim=-1, keepdim=True), mix.std(dim=-1, keepdim=True)
+        return forward(model, (mix - mean) / (std + 1e-9), impl=impl) * std + mean
+
+    return run
+
+
+def eval_phase(torch, np, tmp: str, hp: dict, device: str = "cuda",
+               reps: int = STEP_REPS) -> dict:
+    """Phase 8: ``sudo-torch-evaluate`` of a seeded random checkpoint of
+    ``hp`` on a synthetic 16 kHz WHAMR-layout test split, in crops of 4 s at
+    batch 4 and then in full length (K1 launches counted each time), one
+    batch's SI-SDRi against the ``xla`` blocks, fidelity, the forward's time
+    per block form and profile, and BSS-eval's time per batch."""
+    import pickle
+
+    from sudo_rm_rf_tpu_torch import losses, models
+    from sudo_rm_rf_tpu_torch.cli.evaluate import main as evaluate_main
+    from sudo_rm_rf_tpu_torch.data.synthetic import write_whamr_corpus
+    from sudo_rm_rf_tpu_torch.data.whamr import WhamRDataset
+    from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+
+    tag = f"U{hp['num_blocks']}/B{hp['enc_num_basis']} 16 kHz"
+    chunk = int(CHUNK_SECONDS * FS16)
+    t0 = time.perf_counter()
+    root = write_whamr_corpus(os.path.join(tmp, "whamr16"), 0, 0, len(EVAL_SECONDS),
+                              seconds=EVAL_SECONDS, fs=FS16, seed=0)
+    print(f"eval: {len(EVAL_SECONDS)} WHAMR-layout test wavs of {EVAL_SECONDS} s at "
+          f"{FS16} Hz written in {time.perf_counter() - t0:.1f} s")
+    model = models.get_model("relu", **hp, device=device,
+                             generator=torch.Generator().manual_seed(0))
+    model.eval()
+    ckpt = os.path.join(tmp, "u36.pt")
+    torch.save(model.state_dict(), ckpt)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"eval: {tag} checkpoint of {n_params:,} params")
+    argv = ["--checkpoint", ckpt, "--dataset", "WHAMR", "--separation_task",
+            "noisy_reverberant", "-fs", str(FS16), "--timelength", str(CHUNK_SECONDS),
+            "--batch_size", str(BATCH), "--root_dirpath", root, "--device", device,
+            "--num_sources", str(hp["num_sources"]), *hp_argv(hp)]
+    keys = {f"{k}_{s}" for k in ("si_sdr", "si_sdri", "sdr", "sdri", "sir", "sar")
+            for s in ("mean", "median")}
+    runs = {}
+    for mode, extra, batches in (
+            ("crops", ["--out_pickle", os.path.join(tmp, "eval.pkl")],
+             len(EVAL_SECONDS) // BATCH),
+            ("full_length", ["--full_length", "--n_samples", str(EVAL_FULL_LENGTH_FILES)],
+             EVAL_FULL_LENGTH_FILES * n_forward_batches(int(max(EVAL_SECONDS) * FS16),
+                                                        chunk, BATCH))):
+        # the evaluation path, with the kernel count at 0 just before it
+        U.fused_uconv_block.launches = 0
+        t0 = time.perf_counter()
+        out = run_cli(evaluate_main, argv + extra)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = U.fused_uconv_block.launches
+        want = hp["num_blocks"] * batches if device == "cuda" else 0
+        summary = json.loads(out.strip().splitlines()[-1])
+        print(f"eval {mode}: {batches} forward batches, {launches} K1 launches, "
+              f"{wall:.2f} s wall (checkpoint load, loader, forwards, metrics)")
+        if launches != want:
+            raise RuntimeError(f"eval {mode}: expected {want} K1 launches, counted {launches}")
+        if not keys <= set(summary) or not all(np.isfinite(summary[k]) for k in keys):
+            raise RuntimeError(f"eval {mode}: summary {summary}")
+        runs[mode] = dict(summary=summary, launches=launches, forward_batches=batches,
+                          wall_s=wall)
+
+    # the first batch again, through the plain blocks: the same SI-SDRi
+    ds = WhamRDataset(root_dirpath=root, task="noisy_reverberant", split="tt",
+                      min_or_max="min", zero_pad=True, sample_rate=FS16,
+                      timelength=CHUNK_SECONDS)
+    items = [ds[i] for i in range(BATCH)]
+    mix = torch.from_numpy(np.stack([s.sum(0, keepdims=True) for s, _ in items])).to(device)
+    tgt = torch.from_numpy(np.stack([t[: hp["num_sources"]] for _, t in items])).to(device)
+    sisdri = losses.PermInvariantSISDR(n_sources=hp["num_sources"], zero_mean=True,
+                                       backward_loss=False, improvement=True,
+                                       return_individual_results=True)
+    est = {impl: _standardized_forward(torch, improved_forward_fast, model, impl)(mix)
+           for impl in ("kernel", "xla")}
+    vals = {impl: sisdri(e, tgt, initial_mixtures=mix).cpu().numpy() for impl, e in est.items()}
+    cli_vals = np.asarray(pickle.load(open(os.path.join(tmp, "eval.pkl"), "rb"))["si_sdri"][:BATCH])
+    diff = float(np.abs(vals["kernel"] - vals["xla"]).max())
+    print(f"eval batch 1 SI-SDRi per example: CLI {np.round(cli_vals, 4).tolist()}, kernel "
+          f"{np.round(vals['kernel'], 4).tolist()}, xla {np.round(vals['xla'], 4).tolist()} dB; "
+          f"kernel vs xla max diff {diff:.2e} dB")
+    if not diff <= MAX_SISDRI_DIFF_DB or not np.abs(cli_vals - vals["kernel"]).max() <= 1e-3:
+        raise RuntimeError(f"SI-SDRi: CLI {cli_vals}, kernel {vals['kernel']}, xla {vals['xla']}")
+
+    # fidelity and speed of one bs4 4 s forward
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((BATCH, 1, chunk))
+                         .astype(np.float32)).to(device)
+    U.fused_uconv_block.launches = 0
+    ker = improved_forward_fast(model, x, impl="kernel")
+    per_forward = U.fused_uconv_block.launches
+    if per_forward != (hp["num_blocks"] if device == "cuda" else 0):
+        raise RuntimeError(f"one kernel forward launched K1 {per_forward} times")
+    ref = improved_forward_fast(model, x, impl="xla")
+    if ker.shape != (BATCH, hp["num_sources"], chunk) or not torch.isfinite(ker).all():
+        raise RuntimeError(f"bad forward output {tuple(ker.shape)}")
+    fid = fidelity_db(np, ref.double().cpu().numpy(), ker.double().cpu().numpy())
+    print(f"{tag} bs{BATCH} fp32 forward: {per_forward} K1 launches (counted), fidelity "
+          f"kernel vs xla {fid:.2f} dB")
+    if not fid >= MIN_FIDELITY_DB:
+        raise RuntimeError(f"fidelity {fid:.2f} dB < {MIN_FIDELITY_DB} dB")
+    out = dict(n_params=n_params, launches_per_forward=per_forward, fidelity_db=fid,
+               sisdri_kernel_vs_xla_db=diff, **runs)
+    if device != "cuda":
+        return out
+    audio_s = BATCH * CHUNK_SECONDS
+    fwd = {}
+    for impl in ("kernel", "fma", "xla"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, lambda i=impl: improved_forward_fast(model, x, impl=i), reps=reps)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        fwd[impl] = dict(ms=ms, audio_s_per_s=audio_s / (ms / 1e3), peak_mib=peak)
+        print(f"{tag} bs{BATCH} fp32 forward impl={impl}: {ms:.3f} ms (median of {reps}), "
+              f"{audio_s / (ms / 1e3):.1f} audio-s/s, peak {peak:.0f} MiB")
+    counts = {}
+    named = device_ms_by_kernel(torch, lambda: improved_forward_fast(model, x, impl="kernel"),
+                                3, by_part=False, launches=counts)
+    busy = sum(named.values())
+    k1_ms = sum(v for k, v in named.items()
+                if re.search(r"(%s)_kernel" % "|".join(K1_PARTS), k))
+    top = sorted(named.items(), key=lambda kv: -kv[1])[:8]
+    print(f"{tag} bs{BATCH} kernel forward (torch.profiler, 3 forwards): device busy "
+          f"{busy:.3f} of {fwd['kernel']['ms']:.3f} ms, idle {1 - busy / fwd['kernel']['ms']:.1%}, "
+          f"K1 {k1_ms:.3f} ms, {sum(counts.values()):.0f} device launches a forward; top 8 "
+          f"kernels by device ms (launches): " + "; ".join(
+              f"{k[:60]} {v:.3f} ({counts[k]:.0f})" for k, v in top))
+    # the metrics of one evaluation batch (crops of 4 s at 16 kHz, bs4)
+    e = est["kernel"]
+    bss_ms = time_ms(torch, lambda: losses.bss_eval_improvement(e, tgt, mix, filter_taps=512),
+                     warmup=1, reps=reps)
+    bss1_ms = time_ms(torch, lambda: losses.bss_eval_improvement(e, tgt, mix, filter_taps=1),
+                      warmup=1, reps=reps)
+    si_ms = time_ms(torch, lambda: sisdri(e, tgt, initial_mixtures=mix), warmup=1, reps=reps)
+    print(f"eval metrics of one bs{BATCH} batch (CUDA events, median of {reps}): BSS-eval "
+          f"with improvement at 512 taps {bss_ms:.3f} ms, at 1 tap {bss1_ms:.3f} ms; SI-SDRi "
+          f"{si_ms:.3f} ms")
+    out.update(forward=fwd, busy_ms=busy, idle_share=1 - busy / fwd["kernel"]["ms"],
+               k1_device_ms=k1_ms, device_launches=sum(counts.values()),
+               top_kernels_ms={k[:80]: v for k, v in top},
+               bss_eval_512_ms=bss_ms, bss_eval_1_ms=bss1_ms, sisdri_ms=si_ms)
+    return out
+
+
+def _recipe_batch(np, dataset: str, root: str, fs: int, bs: int):
+    """The first ``bs`` training items of the corpus: WHAMR (sources,
+    targets), each (bs, 3, T); FUSS (bs, 4, T)."""
+    from sudo_rm_rf_tpu_torch.data.setup import create_loader_for_simple_dataset
+
+    ds = create_loader_for_simple_dataset(
+        dataset, separation_task="noisy_reverberant", data_split="val", sample_rate=fs,
+        timelength=CHUNK_SECONDS, root_dirpath=root)
+    items = [ds[i] for i in range(bs)]
+    if isinstance(items[0], tuple):
+        return tuple(np.stack(x) for x in zip(*items))
+    return np.stack(items)
+
+
+def recipe_train_phase(torch, np, tmp: str, dataset: str, run: dict, device: str = "cuda",
+                       reps: int = RECIPE_STEP_REPS, n_train: int = 16, n_val: int = 8) -> dict:
+    """Phase 9: one epoch of the WHAMR or FUSS recipe through
+    ``sudo-torch-train`` at the JAX package's run configuration (``run``),
+    on a synthetic corpus, through the fma blocks (0 K1 launches); one step
+    card vs CPU and the fp32 fma step time."""
+    from sudo_rm_rf_tpu_torch.cli.train import main as train_main
+    from sudo_rm_rf_tpu_torch.config import DataConfig, ExperimentConfig, ModelConfig
+    from sudo_rm_rf_tpu_torch.data.synthetic import write_fuss_corpus, write_whamr_corpus
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+    from sudo_rm_rf_tpu_torch.train.experiment import make_recipe
+
+    hp, fs, name = run["hp"], run["fs"], f"smoke_{dataset.lower()}"
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, dataset.lower())
+    if dataset == "FUSS":
+        write_fuss_corpus(root, n_train, n_val, 0, seconds=CHUNK_SECONDS, seed=0)
+    else:
+        write_whamr_corpus(root, n_train, n_val, 0, seconds=CHUNK_SECONDS, fs=fs, seed=0)
+    print(f"{dataset}: corpus of {n_train} + {n_val} examples of {CHUNK_SECONDS} s at {fs} Hz "
+          f"in {time.perf_counter() - t0:.1f} s")
+    argv = ["--train", dataset, "--val", dataset, "--model_type", "relu",
+            "-bs", str(RECIPE_BATCH), "--block_impl", "fma", "--audio_timelength",
+            str(CHUNK_SECONDS), "-fs", str(fs), "--n_jobs", "4", "--n_epochs", "1",
+            "--loss_clamp", str(run["loss_clamp"]), "--save_checkpoint_every", "1",
+            "--experiment_name", name, "-elp", os.path.join(tmp, "logs"),
+            "-clp", os.path.join(tmp, "ckpt"), f"--{dataset.lower()}_root", root,
+            "--device", device, *hp_argv(hp), *run["argv"]]
+    # the training path, with the kernel count at 0 just before it
+    U.fused_uconv_block.launches = 0
+    t0 = time.perf_counter()
+    out = run_cli(train_main, argv)
+    epoch_s = time.perf_counter() - t0
+    launches = U.fused_uconv_block.launches
+    line = re.search(r"^epoch 1/1 (.*?) \(", out, re.M)
+    metrics = dict(kv.split("=") for kv in line.group(1).split()) if line else {}
+    losses = np.load(os.path.join(tmp, "logs", name, "tr_loss", "epoch_1.npy")).tolist()
+    val = {k: float(v) for k, v in metrics.items() if k.startswith("val")}
+    print(f"{dataset} train: 1 epoch in {epoch_s:.1f} s (model build, loader and validation "
+          f"included); K1 launches {launches}; step losses "
+          f"{', '.join(f'{v:.3f}' for v in losses)}; val {val}")
+    if launches:
+        raise RuntimeError(f"the {dataset} training path launched K1 {launches} times")
+    want_val = (["val_SISDRi"] if dataset == "WHAMR" else
+                ["val_1_srcs_SISDR"] + [f"val_{n}_srcs_SISDRi" for n in range(2, 5)])
+    if (sorted(val) != want_val or len(losses) != n_train // RECIPE_BATCH
+            or not (np.isfinite(losses).all() and np.isfinite(list(val.values())).all())):
+        raise RuntimeError(f"{dataset} epoch line {metrics}, step losses {losses}")
+    blob = torch.load(os.path.join(tmp, "ckpt", name, "relu_epoch_1"), map_location="cpu",
+                      weights_only=True)
+    config = ExperimentConfig(model=ModelConfig(num_sources=hp["num_sources"]),
+                              data=DataConfig(train=(dataset,)))
+    checks = step_checks(torch, np, "relu", hp, blob["model"],
+                         _recipe_batch(np, dataset, root, fs, RECIPE_BATCH), device,
+                         [("fma", None)], reps, recipe=make_recipe(config),
+                         label=f"{dataset} U16/{hp['out_channels']}", loss_clamp=run["loss_clamp"],
+                         mixture_consistency=run["mixture_consistency"])
+    return dict(step_losses=losses, val=val, train_launches=launches, epoch_s=epoch_s,
+                **checks)
+
+
 def main() -> int:
     import torch
 
@@ -736,8 +1020,19 @@ def main() -> int:
               f"in {time.perf_counter() - t0:.1f} s")
         train = train_phase(torch, np, tmp, root, FLAGSHIP)
         train_gc = gc_train_phase(torch, np, tmp, root, GROUPCOMM)
-
     print(json.dumps({"train": train, "train_gc": train_gc}))
+
+    # 8. evaluation of U36/Bases4096 at 16 kHz
+    with tempfile.TemporaryDirectory() as tmp:
+        evaluation = eval_phase(torch, np, tmp, U36)
+    print(json.dumps({"evaluate": evaluation}))
+
+    # 9. the WHAMR and FUSS recipes
+    with tempfile.TemporaryDirectory() as tmp:
+        recipes = {name: recipe_train_phase(torch, np, tmp, name, run)
+                   for name, run in RECIPE_RUNS.items()}
+    print(json.dumps({"train_recipes": recipes}))
+
     flagship = k1["flagship"]
     print(json.dumps({"kernels": [{
         "name": "fused_uconv_block", "route": "cuda",
@@ -748,7 +1043,12 @@ def main() -> int:
         "launches_per_gc_forward": serve_gc["launches_per_forward"],
         "launches_training_path": train["train_launches"],
         "launches_gc_training_path": train_gc["train_launches"],
-        **flagship, "gc_shape": k1["groupcomm"],
+        "launches_eval_path": evaluation["crops"]["launches"],
+        "launches_eval_full_length": evaluation["full_length"]["launches"],
+        "launches_per_u36_forward": evaluation["launches_per_forward"],
+        **{f"launches_{name.lower()}_training_path": r["train_launches"]
+           for name, r in recipes.items()},
+        **flagship, "gc_shape": k1["groupcomm"], "u36_shape": k1["u36"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,18 @@ Subpackages
 -----------
 ops        conv1d, conv_transpose1d, GlobLN, padding, and the U-ConvBlock with
            its hand-written Hopper kernel (csrc/uconv.cu).
-models     The Improved SuDoRM-RF ("relu") and its serving forward.
+models     The Improved SuDoRM-RF ("relu") and GroupComm v2, and their
+           serving forwards.
 inference  Overlap-add chunked long-recording separation.
-convert    Loading the JAX package's param trees into the port.
-cli        ``sudo-torch-separate``.
+convert    Torch checkpoints, and the JAX package's param trees and train
+           states into the port.
+losses     PIT SI-SDR, the stabilized SI-SDR, zero-reference SNR, BSS-eval,
+           mixture consistency.
+data       WHAM, WHAMR!, FUSS and Libri2Mix loaders, synthetic corpora.
+train      Augmentations with explicit draws, the trainer, the recipes.
+utils      Checkpoints and logs.
+cli        ``sudo-torch-separate``, ``sudo-torch-train``,
+           ``sudo-torch-evaluate``.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,221 @@
+"""`sudo-torch-evaluate`: evaluate a torch checkpoint on a dataset split.
+
+Counterpart of ``sudo_rm_rf_tpu/cli/evaluate.py``. Loads a ``.pt`` (a
+state_dict, or a whole pickled module), standardizes each mixture (ddof=1,
+eps 1e-9), separates it on ``--device`` through ``improved_forward_fast``
+(model types ``relu``/``improved``) or ``groupcomm_forward_fast``
+(``groupcomm_v2``), which run the CUDA U-ConvBlock kernel on a CUDA tensor,
+applies the optional mixture-consistency projection, de-standardizes, and
+reports mean and median SI-SDR, SI-SDRi and BSS-eval SDR, SDRi, SIR and SAR
+per example as one JSON line (the JAX CLI's keys):
+
+    sudo-torch-evaluate --checkpoint Improved_Sudormrf_U36_Bases4096_WHAMRexclmark.pt \\
+        --dataset WHAMR --separation_task noisy_reverberant -fs 16000 \\
+        --out_channels 512 --in_channels 512 --num_blocks 36 \\
+        --enc_num_basis 4096 --root_dirpath /mnt/data/whamr
+
+``--full_length`` scores whole recordings (padded to the split's longest)
+through the overlap-add separator, ``--batch_size`` chunks a forward.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import pickle
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Evaluate separation quality")
+    p.add_argument("--checkpoint", required=True, help="torch .pt checkpoint")
+    p.add_argument("--model_type", default="relu")
+    p.add_argument("--dataset", default="WHAMR",
+                   choices=["WHAM", "WHAMR", "LIBRI2MIX", "FUSS", "AUGMENTED"])
+    p.add_argument("--dataset_paths", nargs="+", default=[],
+                   help="hierarchical corpus roots (AUGMENTED only; not ported: "
+                        "ROADMAP queue 1, item 10)")
+    p.add_argument("--split", default="test")
+    p.add_argument("--separation_task", default="sep_clean")
+    p.add_argument("-fs", type=int, default=8000)
+    p.add_argument("--timelength", type=float, default=4.0)
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--n_samples", type=int, default=0)
+    p.add_argument("--min_or_max", default="min")
+    p.add_argument("--mixture_consistency", default=None,
+                   choices=[None, "uniform", "magsq"])
+    p.add_argument("--full_length_mode", default="overlap_add",
+                   choices=["overlap_add", "seq_parallel"],
+                   help="whole-recording engine: overlap-add chunking; "
+                        "seq_parallel is not ported (ROADMAP queue 1, item 13)")
+    p.add_argument("--full_length", action="store_true",
+                   help="evaluate whole recordings through the overlap-add "
+                        "separator instead of fixed-length crops")
+    p.add_argument("--bss_filter_taps", type=int, default=512,
+                   help="BSS-eval distortion-filter length: 512 = the "
+                        "museval/mir_eval convention; 1 = scalar-gain closed form")
+    p.add_argument("--out_pickle", default=None)
+    p.add_argument("--reference_root", default=None,
+                   help="path that makes a whole-pickled torch module loadable")
+    p.add_argument("--root_dirpath", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to evaluate on; never falls back to the CPU")
+    # model hyperparams (needed for bare state_dicts)
+    p.add_argument("--out_channels", type=int, default=256)
+    p.add_argument("--in_channels", type=int, default=512)
+    p.add_argument("--num_blocks", type=int, default=16)
+    p.add_argument("--upsampling_depth", type=int, default=5)
+    p.add_argument("--enc_kernel_size", type=int, default=21)
+    p.add_argument("--enc_num_basis", type=int, default=512)
+    p.add_argument("--num_sources", type=int, default=2)
+    p.add_argument("--group_size", type=int, default=16)
+    p.add_argument("--n_heads", type=int, default=4)
+    p.add_argument("--att_dims", type=int, default=256)
+    return p
+
+
+def main(argv=None):
+    p = build_parser()
+    args = p.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from sudo_rm_rf_tpu_torch import losses, models
+    from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import load_pt_file
+    from sudo_rm_rf_tpu_torch.data.setup import create_loader_for_simple_dataset
+    from sudo_rm_rf_tpu_torch.models.fast_inference import (
+        groupcomm_forward_fast,
+        improved_forward_fast,
+    )
+
+    models.check_model_type(args.model_type)
+    if args.dataset == "AUGMENTED":
+        raise NotImplementedError(
+            "dataset AUGMENTED is not ported yet (ROADMAP queue 1, item 10)")
+    if args.full_length and args.full_length_mode == "seq_parallel":
+        raise NotImplementedError(
+            "--full_length_mode seq_parallel is not ported yet (ROADMAP queue 1, item 13)")
+    if not args.checkpoint.endswith(".pt"):
+        raise NotImplementedError(
+            "msgpack checkpoints are not ported yet (ROADMAP queue 1, item 6): "
+            "--checkpoint must be a torch .pt file")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+
+    hp = dict(
+        out_channels=args.out_channels, in_channels=args.in_channels,
+        num_blocks=args.num_blocks, upsampling_depth=args.upsampling_depth,
+        enc_kernel_size=args.enc_kernel_size, enc_num_basis=args.enc_num_basis,
+        num_sources=args.num_sources,
+    )
+    fast = improved_forward_fast
+    if args.model_type == "groupcomm_v2":
+        hp["group_size"] = args.group_size
+        fast = groupcomm_forward_fast
+    sd, attrs = load_pt_file(args.checkpoint, reference_root=args.reference_root)
+    hp.update(attrs)
+    model = models.get_model(args.model_type, **hp, device=device)
+    # the published v1 checkpoints carry a dead ``ln_mask_in``
+    model.load_state_dict({k: v for k, v in sd.items() if k.split(".")[0] != "ln_mask_in"},
+                          strict=True)
+    model.eval()
+    separate = functools.partial(fast, model)
+
+    dataset = create_loader_for_simple_dataset(
+        dataset_name=args.dataset, separation_task=args.separation_task,
+        data_split=args.split, sample_rate=args.fs,
+        min_or_max=args.min_or_max, zero_pad=True,
+        timelength=-1.0 if args.full_length else args.timelength,
+        n_samples=args.n_samples, root_dirpath=args.root_dirpath,
+    )
+    loader = dataset.get_generator(
+        batch_size=1 if args.full_length else args.batch_size,
+        shuffle=False, num_workers=2,
+    )
+
+    sisdr = losses.PermInvariantSISDR(
+        n_sources=args.num_sources, zero_mean=True, backward_loss=False,
+        return_individual_results=True,
+    )
+    sisdri = losses.PermInvariantSISDR(
+        n_sources=args.num_sources, zero_mean=True, backward_loss=False,
+        improvement=True, return_individual_results=True,
+    )
+
+    @torch.no_grad()
+    def forward(mixture):  # (B, 1, T)
+        mean = mixture.mean(dim=-1, keepdim=True)
+        std = mixture.std(dim=-1, keepdim=True)  # ddof=1
+        xn = (mixture - mean) / (std + 1e-9)
+        est = separate(xn)
+        if args.mixture_consistency:
+            est = losses.mixture_consistency(est, xn, args.mixture_consistency)
+        return est * std + mean
+
+    ola = None
+    if args.full_length:
+        from sudo_rm_rf_tpu_torch.inference import OverlapAddSeparator
+
+        ola = OverlapAddSeparator(
+            model, chunk_samples=int(args.timelength * args.fs),
+            num_sources=args.num_sources, batch_chunks=args.batch_size,
+            mixture_consistency=args.mixture_consistency, forward_fn=separate,
+        )
+
+    results = {"si_sdr": [], "si_sdri": [], "sdr": [], "sdri": [], "sir": [], "sar": []}
+    for batch in loader:
+        if isinstance(batch, (tuple, list)):
+            mixture, targets = np.asarray(batch[0]), batch[-1]
+            if mixture.ndim == 2:
+                mixture = mixture[:, None, :]
+            elif mixture.shape[1] > 1:
+                if args.dataset != "WHAMR":
+                    raise SystemExit(
+                        f"{args.dataset} yielded a (B, {mixture.shape[1]}, T) first "
+                        "tensor; only WHAMR input-source stacks are summed to mono")
+                # WHAMR's (B, S, T) stack of input sources (reverberant s1, s2
+                # and noise): the input is their sum, standardized by forward
+                mixture = mixture.sum(axis=1, keepdims=True)
+        else:
+            targets = batch
+            mixture = np.asarray(batch).sum(1, keepdims=True)
+        mix = torch.from_numpy(np.ascontiguousarray(mixture, np.float32)).to(device)
+        tgt = torch.from_numpy(np.ascontiguousarray(np.asarray(targets)[:, : args.num_sources],
+                                                    np.float32)).to(device)
+        if ola is not None:
+            est = torch.from_numpy(ola.separate(mixture[0, 0])[None]).to(device)
+        else:
+            est = forward(mix)
+        results["si_sdr"] += sisdr(est, tgt).cpu().tolist()
+        results["si_sdri"] += sisdri(est, tgt, initial_mixtures=mix).cpu().tolist()
+        # BSS-eval SDR/SIR/SAR and SDRi, each example's mean over its sources
+        bss = losses.bss_eval_improvement(est, tgt, mix, filter_taps=args.bss_filter_taps)
+        for ours, theirs in (("sdr", "sdr"), ("sdri", "sdr_i"), ("sir", "sir"),
+                             ("sar", "sar")):
+            results[ours] += bss[theirs].mean(-1).cpu().tolist()
+
+    summary = {k + "_mean": float(np.mean(v)) for k, v in results.items() if v}
+    summary.update({k + "_median": float(np.median(v)) for k, v in results.items() if v})
+    summary["n_examples"] = len(results["si_sdr"])
+    if results["sdr"]:
+        summary["bss_eval_filter_taps"] = args.bss_filter_taps
+        if args.bss_filter_taps < 512:
+            # SI-SDR rows compare with published tables at any tap count;
+            # absolute sdr/sir/sar only at museval's 512
+            summary["bss_eval_note"] = (
+                f"sdr/sir/sar use length-{args.bss_filter_taps} distortion "
+                "filters; museval uses 512 - do not compare absolutes "
+                "against museval-based tables"
+            )
+    print(json.dumps(summary))
+    if args.out_pickle:
+        with open(args.out_pickle, "wb") as fh:
+            pickle.dump(results, fh)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,11 @@
 """Dataset dispatch (counterpart of ``sudo_rm_rf_tpu/data/setup.py``): name ->
 loader class, root path, split translation.
 
-The port loads WHAM and LIBRI2MIX, the recipes its trainer runs; every other
-dataset raises, naming the ROADMAP item that holds it.
+The port loads WHAM, WHAMR, FUSS and LIBRI2MIX, the recipes its trainer
+runs; MUSDB and the AUGMENTED_* hierarchical sets raise, naming the ROADMAP
+item that holds them. The FUSS val and test splits become one generator per
+source count, keyed ``{split}_{n}_srcs``, each scored with its own
+stabilized metric.
 """
 
 from __future__ import annotations
@@ -13,9 +16,11 @@ from sudo_rm_rf_tpu_torch import config as cfg
 
 _SPLIT_TRANSLATORS = {
     "WHAM": {"train": "tr", "test": "tt", "val": "cv"},
+    "WHAMR": {"train": "tr", "test": "tt", "val": "cv"},
+    "FUSS": {"train": "train", "test": "eval", "val": "validation"},
 }
 # datasets of the JAX package the port does not load yet
-_WAITING = ("WHAMR", "FUSS", "MUSDB", "AUGMENTED")
+_WAITING = ("MUSDB", "AUGMENTED")
 
 
 def _not_ported(dataset_name: str):
@@ -35,11 +40,15 @@ def create_loader_for_simple_dataset(
     timelength: float = 4.0,
     normalize_audio: bool = False,
     n_samples: int = 0,
+    min_num_sources: int = 1,
+    max_num_sources: int = 4,
     root_dirpath: Optional[str] = None,
 ):
     """Build one dataset. ``root_dirpath`` overrides the configured root."""
+    from sudo_rm_rf_tpu_torch.data.fuss import FUSSDataset
     from sudo_rm_rf_tpu_torch.data.libri2mix import LibriMixDataset
     from sudo_rm_rf_tpu_torch.data.wham import WhamDataset
+    from sudo_rm_rf_tpu_torch.data.whamr import WhamRDataset
 
     common = dict(sample_rate=int(sample_rate), timelength=float(timelength),
                   zero_pad=zero_pad, n_samples=int(n_samples))
@@ -52,6 +61,20 @@ def create_loader_for_simple_dataset(
             split=_SPLIT_TRANSLATORS["WHAM"][data_split],
             min_or_max=min_or_max, augment=augment,
             normalize_audio=normalize_audio, **common,
+        )
+    if dataset_name == "WHAMR":
+        root = root_dirpath or cfg.paths.whamr_root
+        return WhamRDataset(
+            root_dirpath=root, task=separation_task,
+            split=_SPLIT_TRANSLATORS["WHAMR"][data_split],
+            min_or_max=min_or_max, augment=augment, **common,
+        )
+    if dataset_name == "FUSS":
+        root = root_dirpath or cfg.paths.fuss_root
+        return FUSSDataset(
+            root_dirpath=root, split=_SPLIT_TRANSLATORS["FUSS"][data_split],
+            augment=augment, min_num_sources=min_num_sources,
+            max_num_sources=max_num_sources, **common,
         )
     if dataset_name == "LIBRI2MIX":
         root = root_dirpath or cfg.paths.libri2mix_root
@@ -82,6 +105,30 @@ def setup(hparams: Dict) -> Dict:
                 "Current implementation does not support training using "
                 "multiple datasets."
             )
+        if names[0] == "FUSS" and data_split in ("val", "test"):
+            generators[data_split] = None
+            for n in range(int(hparams.get("min_num_sources", 1)),
+                           int(hparams.get("max_num_sources", 4)) + 1):
+                loader = create_loader_for_simple_dataset(
+                    dataset_name="FUSS",
+                    separation_task=hparams.get("separation_task"),
+                    data_split=data_split,
+                    sample_rate=hparams["fs"],
+                    zero_pad=hparams.get("zero_pad_audio", True),
+                    timelength=hparams["audio_timelength"],
+                    normalize_audio=hparams.get("normalize_audio", False),
+                    min_num_sources=n,
+                    max_num_sources=n,
+                    root_dirpath=hparams.get("fuss_root"),
+                )
+                # evaluation keeps the last partial batch
+                generators[f"{data_split}_{n}_srcs"] = loader.get_generator(
+                    batch_size=hparams["batch_size"],
+                    num_workers=hparams.get("n_jobs", 4),
+                    shuffle=False,
+                    drop_last=False,
+                )
+            continue
         loader = create_loader_for_simple_dataset(
             dataset_name=names[0],
             separation_task=hparams.get("separation_task"),
@@ -92,6 +139,8 @@ def setup(hparams: Dict) -> Dict:
             timelength=hparams["audio_timelength"],
             normalize_audio=hparams.get("normalize_audio", False),
             n_samples=hparams.get("n_" + data_split, 0),
+            min_num_sources=hparams.get("min_num_sources", 1),
+            max_num_sources=hparams.get("max_num_sources", 4),
             root_dirpath=hparams.get(f"{names[0].lower()}_root"),
         )
         generators[data_split] = loader.get_generator(

@@ -33,6 +33,12 @@ def all_permutations(n_sources: int) -> np.ndarray:
     return np.array(list(itertools.permutations(range(n_sources))), np.int64)
 
 
+def partial_permutations(n_estimated: int, n_actual: int) -> np.ndarray:
+    """The P(n_estimated, n_actual) injections of targets into estimates."""
+    return np.array(
+        list(itertools.permutations(range(n_estimated), r=n_actual)), np.int64)
+
+
 def pairwise_neg_sdr(
     est_targets: torch.Tensor,
     targets: torch.Tensor,
@@ -186,6 +192,95 @@ class PermInvariantSISDR:
             s_t = dot / (t_energy + eps) * t_batch
             e_t = mix - s_t
             base = 10.0 * torch.log10((s_t**2).sum(dim=-1) / ((e_t**2).sum(dim=-1) + eps))
+            best_sisdr = best_sisdr - base.mean()
+
+        if not self.return_individual_results:
+            best_sisdr = best_sisdr.mean()
+        if self.backward_loss:
+            best_sisdr = -best_sisdr
+        if return_best_permutation:
+            return best_sisdr, torch.from_numpy(perms).to(pair.device)[best_perm_ind]
+        return best_sisdr
+
+
+def _stabilized_db(rho_sq: torch.Tensor, eps: float) -> torch.Tensor:
+    """10 log10(rho^2 / (1 - rho^2)), eps-stabilized, with rho^2 clipped to
+    [0, 1]: Cauchy-Schwarz bounds it at 1, and fp32 rounding can land a hair
+    above when an estimate equals its target (the improvement baseline of an
+    example whose other sources are silent), which would make the log NaN and
+    the batch mean spread it. Clipped values hit the +90 dB eps ceiling."""
+    rho_sq = rho_sq.clamp(0.0, 1.0)
+    return 10.0 * torch.log10((rho_sq + eps) / (1.0 - rho_sq + eps))
+
+
+@dataclass(frozen=True)
+class StabilizedPermInvSISDRMetric:
+    """Stabilized SI-SDR over the P(n_estimated, n_actual) injections of
+    targets into estimates, the FUSS metric per source count.
+
+    SI-SDR is ``10 log10(rho^2 / (1 - rho^2))`` with rho the normalized
+    inner product, bounded for silent estimates. With ``single_source`` the
+    estimates are summed into one signal first and only the trivial
+    assignment remains. The improvement baseline is the sum of the targets,
+    and its mean over the whole batch is subtracted.
+    """
+
+    n_estimated_sources: int
+    n_actual_sources: int
+    zero_mean: bool = False
+    single_source: bool = False
+    backward_loss: bool = True
+    improvement: bool = False
+    return_individual_results: bool = False
+
+    def __post_init__(self):
+        if self.n_estimated_sources < self.n_actual_sources:
+            raise ValueError("n_estimated_sources must be >= n_actual_sources")
+        if self.single_source and self.n_actual_sources != 1:
+            raise ValueError("single_source needs n_actual_sources == 1")
+
+    @property
+    def permutations(self) -> np.ndarray:
+        if self.single_source:
+            return np.zeros((1, 1), np.int64)
+        return partial_permutations(self.n_estimated_sources, self.n_actual_sources)
+
+    def __call__(
+        self,
+        pr_batch: torch.Tensor,
+        t_batch: torch.Tensor,
+        eps: float = 1e-9,
+        return_best_permutation: bool = False,
+    ):
+        if self.single_source:
+            pr_batch = pr_batch.sum(dim=-2, keepdim=True)
+        if self.zero_mean:
+            pr_batch = pr_batch - pr_batch.mean(dim=-1, keepdim=True)
+            t_batch = t_batch - t_batch.mean(dim=-1, keepdim=True)
+        if t_batch.shape[-2] != self.n_actual_sources:
+            raise ValueError(f"targets hold {t_batch.shape[-2]} sources, "
+                             f"not n_actual_sources={self.n_actual_sources}")
+
+        t_powers = (t_batch * t_batch).sum(dim=-1)  # (B, St)
+        pr_powers = (pr_batch * pr_batch).sum(dim=-1)[:, :, None]  # (B, Se, 1)
+        inner_sq = (pr_batch[:, :, None, :] * t_batch[:, None, :, :]).sum(dim=-1) ** 2
+        pair = _stabilized_db(inner_sq / (pr_powers * t_powers[:, None, :] + eps), eps)
+
+        perms = self.permutations  # (P, n_actual) of estimate indices
+        n_est_eff = 1 if self.single_source else self.n_estimated_sources
+        onehot = _onehots_like(perms, n_est_eff, pair)
+        scores = torch.einsum("bij,pji->bp", pair, onehot) / self.n_actual_sources
+        best_perm_ind = scores.argmax(dim=-1)
+        best_sisdr = scores.amax(dim=-1)
+
+        if self.improvement:
+            mixture = t_batch.sum(dim=-2, keepdim=True)
+            if self.zero_mean:
+                mixture = mixture - mixture.mean(dim=-1, keepdim=True)
+            mix = mixture.expand(mixture.shape[0], self.n_actual_sources, mixture.shape[-1])
+            mix_powers = (mix * mix).sum(dim=-1)
+            inner_sq = (mix * t_batch).sum(dim=-1) ** 2
+            base = _stabilized_db(inner_sq / (mix_powers * t_powers + eps), eps)
             best_sisdr = best_sisdr - base.mean()
 
         if not self.return_individual_results:

@@ -6,7 +6,11 @@ loaders and the checkpoint manager.
 """
 
 from sudo_rm_rf_tpu_torch.train.augment import (
+    draw_fuss,
+    draw_pair_remix,
     draw_remix,
+    fuss_mixture,
+    fuss_online_augment,
     normalize_wav,
     online_remix_pairs,
     online_remix_sources,
@@ -25,7 +29,11 @@ __all__ = [
     "TrainerConfig",
     "TrainState",
     "clip_by_global_norm_",
+    "draw_fuss",
+    "draw_pair_remix",
     "draw_remix",
+    "fuss_mixture",
+    "fuss_online_augment",
     "global_norm",
     "normalize_wav",
     "online_remix_pairs",

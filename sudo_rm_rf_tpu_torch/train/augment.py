@@ -1,4 +1,5 @@
-"""Online mixing augmentation (counterpart of ``sudo_rm_rf_tpu/train/augment.py``).
+"""Online mixing augmentation (counterpart of ``sudo_rm_rf_tpu/train/augment.py``):
+the WSJ0/WHAM remix, the WHAMR pair remix and the FUSS augmentation.
 
 The JAX package draws its permutations from a threefry key inside the jitted
 step; that stream cannot be reproduced in torch. So each remix here takes its
@@ -32,6 +33,12 @@ def draw_remix(generator: torch.Generator, b: int, s: int) -> Tuple[torch.Tensor
     slot_perm = torch.randperm(s, generator=generator)
     batch_perms = torch.stack([torch.randperm(b, generator=generator) for _ in range(s)])
     return slot_perm, batch_perms
+
+
+def draw_pair_remix(generator: torch.Generator, b: int, s: int) -> torch.Tensor:
+    """The draws of one pair remix: a permutation of the ``b`` batch rows
+    per source slot, (s, b)."""
+    return torch.stack([torch.randperm(b, generator=generator) for _ in range(s)])
 
 
 def online_remix_sources(clean_wavs: torch.Tensor, slot_perm: torch.Tensor,
@@ -71,3 +78,30 @@ def online_remix_pairs(sources: torch.Tensor, targets: torch.Tensor,
         new_t.append(_energy_match(targets[perm, k, :], t_energies[:, k]))
     mixture = normalize_wav(sum(new_s))
     return mixture, torch.stack(new_t, dim=1)
+
+
+def draw_fuss(generator: torch.Generator, b: int, s: int):
+    """The draws of one FUSS augmentation: gains (b, s, 1) in [0.5, 1.5), a
+    permutation of the ``s`` source slots (s,) and one permutation of the
+    ``b`` batch rows per slot (s, b)."""
+    gains = torch.rand(b, s, 1, generator=generator) + 0.5
+    slot_perm, batch_perms = draw_remix(generator, b, s)
+    return gains, slot_perm, batch_perms
+
+
+def fuss_online_augment(clean_sources: torch.Tensor, gains: torch.Tensor,
+                        slot_perm: torch.Tensor,
+                        batch_perms: Sequence[torch.Tensor]) -> torch.Tensor:
+    """FUSS universal-separation augmentation of a (B, S, T) source stack:
+    shuffle each source slot across the batch, permute the slots, then apply
+    the gains. Returns the augmented sources; the mixture is their sum."""
+    dev = clean_sources.device
+    cols = [clean_sources[batch_perms[i].to(dev), i] for i in range(clean_sources.shape[1])]
+    aug = torch.stack(cols, dim=1)[:, slot_perm.to(dev)]
+    return aug * gains.to(dev, aug.dtype)
+
+
+def fuss_mixture(sources: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """The standardized sum of a (B, S, T) source stack, (B, T). FUSS
+    stabilizes the std with 1e-9, not ``normalize_wav``'s 1e-8."""
+    return normalize_wav(sources.sum(dim=1), eps)

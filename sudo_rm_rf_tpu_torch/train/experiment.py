@@ -1,9 +1,16 @@
 """The experiment runner behind ``sudo-torch-train`` (counterpart of
-``sudo_rm_rf_tpu/train/experiment.py``), for the WHAM / LIBRI2MIX recipe:
-online cross-batch remix of the loader's sources, PIT SI-SDR clamped to
-+-loss_clamp, Adam with the stepped LR (the ``Trainer``'s defaults).
+``sudo_rm_rf_tpu/train/experiment.py``). The recipe follows the training set:
 
-Each epoch: train -> validate each val set (per-sample SISDRi through the
+  * WHAM / LIBRI2MIX: online cross-batch remix of the loader's sources, PIT
+    SI-SDR clamped to +-loss_clamp;
+  * WHAMR: the same remix permutation for each slot's reverberant source and
+    anechoic target, the mixture the standardized sum of the sources;
+  * FUSS: per-slot batch shuffles, a slot permutation and random gains, the
+    mixture the standardized sum, the zero-reference SNR loss, always through
+    the mixture-consistency projection ('uniform' unless set), and
+    validation per source count with the stabilized SI-SDR.
+
+Each epoch: train -> validate each val set (per-sample metrics through the
 model's own forward, in the training compute dtype) -> report mean/std ->
 audio log -> periodic and best checkpoints (with optimizer state, so a run
 resumes) -> optional early stop.
@@ -19,7 +26,8 @@ from __future__ import annotations
 import glob
 import os
 import time
-from typing import Dict, Optional
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -28,7 +36,13 @@ from sudo_rm_rf_tpu_torch import losses as losses_lib
 from sudo_rm_rf_tpu_torch.config import ExperimentConfig
 from sudo_rm_rf_tpu_torch.models import check_model_type
 from sudo_rm_rf_tpu_torch.train import augment as augment_lib
-from sudo_rm_rf_tpu_torch.train.trainer import Trainer, TrainerConfig, check_config
+from sudo_rm_rf_tpu_torch.train.trainer import (
+    Trainer,
+    TrainerConfig,
+    _default_loss,
+    _default_prepare,
+    check_config,
+)
 from sudo_rm_rf_tpu_torch.utils import (
     AudioLogger,
     CheckpointManager,
@@ -36,7 +50,84 @@ from sudo_rm_rf_tpu_torch.utils import (
     report_losses_mean_and_std,
 )
 
-RECIPES = ("WHAM", "LIBRI2MIX")
+RECIPES = ("WHAM", "LIBRI2MIX", "WHAMR", "FUSS")
+
+
+@dataclass(frozen=True)
+class Recipe:
+    """How a training set becomes train steps.
+
+    draw: (generator, batch) -> the step's random draws;
+    prepare: (draws, batch on the device) -> (mixture (B, 1, T), targets);
+    loss_fn: (est, targets) -> scalar;
+    pairs: whether the step takes the loader's whole (sources, targets)
+      pair (WHAMR) rather than its last array.
+    """
+
+    draw: Callable
+    prepare: Callable
+    loss_fn: Callable
+    pairs: bool = False
+
+
+def make_recipe(config: ExperimentConfig) -> Recipe:
+    """The recipe of ``config``'s training set."""
+    dataset = config.data.train[0] if config.data.train else "WHAM"
+    n_src = config.model.num_sources
+
+    if dataset == "FUSS":
+        snr = losses_lib.PermInvariantSNRwithZeroRefs(n_sources=n_src)
+
+        def prepare(draws, batch):  # batch: sources (B, S, T)
+            aug = augment_lib.fuss_online_augment(batch, *draws)
+            return augment_lib.fuss_mixture(aug)[:, None, :], aug
+
+        return Recipe(lambda g, batch: augment_lib.draw_fuss(g, *batch.shape[:2]),
+                      prepare, lambda est, targets: snr(est, targets))
+
+    if dataset == "WHAMR":
+
+        def prepare(draws, batch):  # batch: (sources, targets), each (B, 3, T)
+            mixture, targets = augment_lib.online_remix_pairs(*batch, draws)
+            return mixture[:, None, :], targets[:, :n_src]
+
+        return Recipe(lambda g, batch: augment_lib.draw_pair_remix(g, *batch[0].shape[:2]),
+                      prepare, _default_loss, pairs=True)
+
+    # WHAM / LIBRI2MIX: the trainer's own WSJ0-style remix of (B, S, T) sources
+    return Recipe(lambda g, batch: augment_lib.draw_remix(g, *batch.shape[:2]),
+                  _default_prepare, _default_loss)
+
+
+def fuss_val_batch(forward: Callable, batch: torch.Tensor, n_actual: int, num_sources: int):
+    """One FUSS validation batch: the mixture is the standardized sum of the
+    ``n_actual`` sources (std eps 1e-9), the estimates come from ``forward``
+    (which includes the mixture-consistency projection), scored with the
+    stabilized SI-SDR over P(num_sources, n_actual) injections, as an
+    improvement for n_actual > 1; with one source only estimate slot 0 is
+    scored. Returns (per-sample values, estimates, mixture)."""
+    mixture = augment_lib.normalize_wav(batch.sum(dim=1, keepdim=True), eps=1e-9)
+    est = forward(mixture)
+    metric = losses_lib.StabilizedPermInvSISDRMetric(
+        n_estimated_sources=num_sources if n_actual > 1 else 1,
+        n_actual_sources=n_actual,
+        zero_mean=True,
+        improvement=n_actual > 1,
+        backward_loss=False,
+        return_individual_results=True,
+    )
+    return metric(est[:, :1] if n_actual == 1 else est, batch), est, mixture
+
+
+def val_mixture(m: np.ndarray) -> np.ndarray:
+    """The model input of a val batch, (B, 1, T): a loader yields a (B, T)
+    mixture (WHAM family) or a (B, S, T) stack of the input sources (WHAMR's
+    reverberant s1, s2 and noise), whose standardized sum is the input."""
+    if m.ndim == 2:
+        return m[:, None, :]
+    if m.shape[1] > 1:
+        return augment_lib.normalize_wav(torch.from_numpy(m).sum(dim=1)).numpy()[:, None, :]
+    return m
 
 
 def check_supported(config: ExperimentConfig) -> None:
@@ -99,6 +190,12 @@ def run_experiment(
     # JAX package seeds its two keys (seed and seed + 1)
     model = config.model.build(device=device,
                                generator=torch.Generator().manual_seed(config.train.seed))
+    recipe = make_recipe(config)
+    dataset = config.data.train[0] if config.data.train else "WHAM"
+    mixture_consistency = config.train.mixture_consistency
+    if dataset == "FUSS" and mixture_consistency is None:
+        # FUSS always projects its estimates onto the mixture, in train and val
+        mixture_consistency = "uniform"
     steps_per_epoch = max(len(generators["train"]), 1)
     trainer = Trainer(
         model,
@@ -109,13 +206,15 @@ def run_experiment(
             steps_per_epoch=steps_per_epoch,
             clip_grad_norm=config.train.clip_grad_norm,
             loss_clamp=config.train.loss_clamp,
-            mixture_consistency=config.train.mixture_consistency,
+            mixture_consistency=mixture_consistency,
             optimizer=config.train.optimizer,
             grad_accum_steps=config.train.grad_accum_steps,
             compute_dtype=config.train.compute_dtype,
             upload_dtype=config.train.upload_dtype,
         ),
-    )  # the trainer's default batch recipe and loss are this recipe's
+        loss_fn=recipe.loss_fn,
+        prepare_batch=recipe.prepare,
+    )
     state = trainer.init_state()
 
     ckpt = CheckpointManager(
@@ -154,34 +253,48 @@ def run_experiment(
         phase = {"data": 0.0, "disp": 0.0, "val": 0.0, "ckpt": 0.0}
         t_mark = time.time()
         for batch in train_gen:
-            # the recipe remixes the sources and never reads the loader's mixture
-            sources = batch[-1] if isinstance(batch, (tuple, list)) else batch
+            # the WHAM-family recipes remix the sources and never read the
+            # loader's mixture; WHAMR takes the (sources, targets) pair
+            if isinstance(batch, (tuple, list)) and not recipe.pairs:
+                batch = batch[-1]
             t0 = time.time()
             phase["data"] += t0 - t_mark
-            draws = augment_lib.draw_remix(remix_generator, *sources.shape[:2])
-            state, metrics = trainer.train_step(state, sources, draws)
+            draws = recipe.draw(remix_generator, batch)
+            state, metrics = trainer.train_step(state, batch, draws)
             res_dic["tr_loss"]["acc"].append(metrics["loss"])
             t_mark = time.time()
             phase["disp"] += t_mark - t0
 
         t_val0 = time.time()
-        val_names = [k for k in generators
-                     if k != "train" and k in ("val", "test", "train_val")]
+        val_names = [k for k in generators if k != "train" and (
+            k in ("val", "test", "train_val") or k.endswith("_srcs"))]
+        forward = lambda m: trainer.forward(model, m, trainer.compute_dtype)
         for val_name in val_names:
             gen = generators.get(val_name)
             if gen is None or len(gen) == 0:
                 continue
-            metric_name = f"{val_name}_SISDRi"
-            res_dic.setdefault(metric_name, {"acc": []})
             last_batch = None
-            for mixture, targets in gen:
-                mixture = torch.from_numpy(mixture[:, None, :]).to(device)
-                targets = torch.from_numpy(targets).to(device)
-                with torch.no_grad():
-                    est = trainer.forward(model, mixture, trainer.compute_dtype)
-                    vals = sisdri(est, targets[:, :n_src], initial_mixtures=mixture)
-                res_dic[metric_name]["acc"].append(vals)
-                last_batch = (est, targets, mixture)
+            if val_name.endswith("_srcs"):  # FUSS, one source count
+                n_actual = int(val_name.split("_")[1])
+                metric_name = f"{val_name}_SISDRi" if n_actual > 1 else f"{val_name}_SISDR"
+                res_dic.setdefault(metric_name, {"acc": []})
+                for batch in gen:
+                    targets = torch.from_numpy(batch).to(device)
+                    with torch.no_grad():
+                        vals, est, mixture = fuss_val_batch(forward, targets, n_actual, n_src)
+                    res_dic[metric_name]["acc"].append(vals)
+                    last_batch = (est, targets, mixture)
+            else:
+                metric_name = f"{val_name}_SISDRi"
+                res_dic.setdefault(metric_name, {"acc": []})
+                for mixture, targets in gen:
+                    mixture = torch.from_numpy(val_mixture(mixture)).to(device)
+                    targets = torch.from_numpy(targets).to(device)
+                    with torch.no_grad():
+                        est = forward(mixture)
+                        vals = sisdri(est, targets[:, :n_src], initial_mixtures=mixture)
+                    res_dic[metric_name]["acc"].append(vals)
+                    last_batch = (est, targets, mixture)
             if last_batch is not None and epoch % log_audio_every == 0:
                 audio_logger.log_batch(
                     *(v.cpu().numpy() for v in last_batch), experiment=logger,

@@ -505,7 +505,7 @@ def test_run_experiment_stops_early_on_a_plateau(tmp_path, monkeypatch):
     (["--remat_blocks"], NotImplementedError),
     (["--optimizer", "radam_cosine"], NotImplementedError),
     (["--upload_dtype", "bfloat16"], NotImplementedError),
-    (["--train", "FUSS"], NotImplementedError),
+    (["--train", "MUSDB"], NotImplementedError),
     (["--model_type", "causal"], NotImplementedError),
     (["--model_type", "sepformer"], NotImplementedError),
     (["--model_type", "groupcomm_v2", "--block_impl", "kernel"], ValueError),
