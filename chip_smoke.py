@@ -16,8 +16,8 @@
    bit-identical. At the flagship and U36 shapes, time the kernel,
    ``uconv_block_fma`` and ``uconv_block_reference`` (CUDA events, median of
    25 after warm-up). At B=4 of both and at the GroupComm shape, also: the
-   device time of each of K1's parts and the GEMM tile width taken
-   (``torch.profiler``), K1's bound, and the ``torch.matmul`` time of the
+   device time of each of K1's parts (``torch.profiler``), K1's bound, and
+   the ``torch.matmul`` time of the
    same two products (TF32 off, and labelled, on), a yardstick the port
    never calls.
 4. The serving path: ``sudo-torch-separate`` with a seeded random Improved
@@ -68,9 +68,32 @@
    one ``sudo-torch-train`` epoch each on a synthetic corpus (finite losses,
    the val metrics printed, 0 K1 launches), one step card vs CPU (1e-3)
    and the fp32 ``fma`` step time.
-10. Print JSON lines of the serving, training, evaluation and recipe
-   results and one of kernel results, then ``{"ok": true, "device": ...}``
-   as the last line. Any failure raises and exits non-zero.
+10. K1 with a bf16 pyramid (``pyramid_dtype=torch.bfloat16``) at the
+   flagship B=4, the GroupComm folded and the U36 B=4 shapes, against its
+   plain version (``uconv_block_levelwise`` with the same pyramid, on the
+   card): >= 80 dB on the block's change (out - x), |delta| <= 2e-3 but at
+   bf16 rounding flips (at most 1e-5 of the outputs, none past 1e-2; the
+   plain version's own fp32-vs-float64 spread printed beside), two calls
+   bit-identical; its distance to the fp32 pyramid's output, its time
+   and parts beside the fp32 pyramid's (in turns), the upsum's bound from
+   the halved level bytes. Then K1 and the fp32 plain block against a
+   float64 plain block at K = Co = 256 and 512, and their error growth.
+11. bf16 serving of Improved and GroupComm U16/512: every impl of the fast
+   forward with ``compute_dtype="bfloat16"`` (and ``kernel`` with the bf16
+   pyramid, K1's bf16 pyramid's main path) from a copy cast once for it,
+   >= 35 dB from its own fp32 forward, K1 counted, kernel against
+   xla, bs4 and bs8 times. int8 serving (``models/quantized.py``) of both at
+   bs8: dynamic and static fidelity against the fp32 serving forward, the 25
+   dB gate, times, and ``aten::_int_mm`` once a quantized site on the card.
+12. ``sudo-torch-bench`` at the zoo's U16/512, GroupComm and U36 rows (bs1
+   and bs4, fp32 and bf16) and one backward row, K1 counted; then
+   ``python -m sudo_rm_rf_tpu_torch.bench``, its line and gates.
+13. Print JSON lines of the serving, training, evaluation, recipe,
+   reduced-precision and bench results, each phase's seconds, and one line
+   of kernel results (K1 with an fp32 and with a bf16 pyramid), then
+   ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
+   exits non-zero. ``--only PHASE ...`` runs some phases (a rehearsal on
+   the card, without the kernels and ok lines).
 """
 
 from __future__ import annotations
@@ -79,6 +102,7 @@ import contextlib
 import functools
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -144,6 +168,22 @@ STEP_WARMUP, STEP_REPS = 3, 10
 MAX_CARD_CPU_REL = 1e-3
 HP_FLAGS = ("out_channels", "in_channels", "num_blocks", "upsampling_depth",
             "enc_kernel_size", "enc_num_basis", "group_size")
+# K1 with a bf16 pyramid: the shapes, and its limits against its plain
+# version on the block's change (out - x): >= 80 dB, |delta| <= 2e-3 but at
+# bf16 rounding flips. Where the two round a stored level value to
+# neighbouring bf16 values, one output moves by up to ~5e-3 (a bf16 spacing,
+# 2^-7 of a normalized value of ~4, times a res weight of up to ~0.15); the
+# plain version in fp32 and in float64 part so by 2.7e-3 to 4.8e-3 at these
+# shapes. So at most 1e-5 of the outputs may pass 2e-3, and none 1e-2; a
+# fault of the kernel's indexing or statistics moves whole rows or planes.
+PYRAMID_SHAPES = [(BATCH, 256, 512, 3200, 5), GC_BLOCK, U36_BLOCK]
+PYRAMID_MIN_DB, PYRAMID_MAX_ABS = 80.0, 2e-3
+PYRAMID_FLIP_SHARE, PYRAMID_FLIP_MAX = 1e-5, 1e-2
+F64_SHAPES = [(BATCH, 256, 512, 3200, 5), U36_BLOCK]
+# reduced-precision serving: the bench's gates (bench.py) and the batches
+# timed; an int8 output under INT8_MIN_DB is a fault, not a miss of the gate
+BF16_GATE_DB, INT8_GATE_DB, INT8_MIN_DB = 35.0, 25.0, 15.0
+SERVE_BATCHES = (BATCH, 8)
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 25) -> float:
@@ -206,19 +246,6 @@ def device_ms_by_kernel(torch, fn, calls: int, by_part: bool = True,
             if launches is not None:
                 launches[name] = launches.get(name, 0.0) + e.count / calls
     return out
-
-
-def gemm_tiles(names) -> dict:
-    """Channel width of the tile each K1 GEMM ran with ({'proj': 64 or 128,
-    'res': ...}), read from the profiled kernel names: the template's NJ is
-    64-channel sub-tiles, its PRO flag tells the res GEMM from the proj."""
-    tiles = {}
-    for name in names:
-        m = (re.search(r"gemm_kernel<(\d), (true|false)", name)
-             or re.search(r"gemm_kernelILi(\d)ELb(\d)", name))
-        if m:
-            tiles["res" if m.group(2) in ("true", "1") else "proj"] = 64 * int(m.group(1))
-    return tiles
 
 
 def tensor_core_instructions(lib) -> int | None:
@@ -343,10 +370,6 @@ def k1_phase(torch, U, lib, hmma) -> dict:
         print(f"{label} device ms per call by part (torch.profiler, 20 calls): "
               + (", ".join(f"{k} {parts[k]:.4f}" for k in K1_PARTS if k in parts)
                  or "not measured (no device time in the trace)"))
-        tiles = gemm_tiles(device_ms_by_kernel(torch, call, 2, by_part=False))
-        print(f"{label} GEMM tile width (channels) taken by gemm(): "
-              + (", ".join(f"{k} {v}" for k, v in sorted(tiles.items()))
-                 or "not measured (no gemm_kernel in the trace)"))
         acc_in = torch.randn(b, ci, t, generator=torch.Generator().manual_seed(2)).cuda()
         two = lambda: (torch.matmul(p["proj_w"], x), torch.matmul(p["res_w"], acc_in))
         lib_ms = time_ms(torch, two)
@@ -368,14 +391,14 @@ def k1_phase(torch, U, lib, hmma) -> dict:
         call()
         torch.cuda.synchronize()
         call_mb = (torch.cuda.max_memory_allocated() - before) / 1e6
-        ws = 4 * lib.uconv_workspace_floats(b, co, ci, t, depth) / 1e6
+        ws = 4 * lib.uconv_workspace_floats(b, co, ci, t, depth, 0) / 1e6
         pyr = 4 * b * ci * sum(t >> k for k in range(depth)) / 1e6
         print(f"{label} one call allocates {call_mb:.1f} MB on the card (measured: output "
               f"{4 * x.numel() / 1e6:.1f} MB + scratch); the shapes call for a scratch of "
               f"{ws:.1f} MB, of it the pyramid {pyr:.1f} MB")
         row.update(library_ms=lib_ms, library_tf32_ms=lib_tf32_ms,
                    library_call="torch.matmul of the proj and res products",
-                   parts_ms={k: parts.get(k) for k in K1_PARTS}, gemm_tiles=tiles,
+                   parts_ms={k: parts.get(k) for k in K1_PARTS},
                    call_alloc_mb=call_mb, bit_identical=True,
                    tensor_core_instructions=hmma)
         rows[name] = row
@@ -956,9 +979,298 @@ def recipe_train_phase(torch, np, tmp: str, dataset: str, run: dict, device: str
                 **checks)
 
 
-def main() -> int:
+def _snr_db(torch, ref, est) -> float:
+    """10 log10 of |ref|^2 over |ref - est|^2, in float64; inf if equal."""
+    ref, est = ref.double(), est.double()
+    err = float(((ref - est) ** 2).sum())
+    return float("inf") if err == 0.0 else 10 * math.log10(float((ref**2).sum()) / err)
+
+
+def upsum_bound_ms(b, ci, t, depth, level_bytes: int) -> float:
+    """Least time (ms) of K1's upsample-sum: its levels read once at
+    ``level_bytes`` a value and its fp32 output written once."""
+    levels = b * ci * sum(t >> k for k in range(depth))
+    return 1e3 * (level_bytes * levels + 4 * b * ci * t) / PEAK_BYTES
+
+
+def k1_bf16_phase(torch, U) -> dict:
+    """K1 with a bf16 pyramid at the flagship B=4, the GroupComm folded and
+    the U36 B=4 shapes: against its plain version (``uconv_block_levelwise``
+    with the same pyramid, on the card) on the block's change (out - x), two
+    calls bit-identical, its distance to the fp32 pyramid's output, and its
+    time and parts beside the fp32 pyramid's."""
+    bf = torch.bfloat16
+    rows = {}
+    for b, co, ci, t, depth in PYRAMID_SHAPES:
+        name = ("groupcomm" if (b, co, ci, t, depth) == GC_BLOCK
+                else "u36" if (b, co, ci, t, depth) == U36_BLOCK else "flagship")
+        label = f"K1 bf16 pyramid {name} {(b, co, ci, t, depth)}"
+        p = block_params(torch, depth, ci, co, seed=0)
+        x = torch.randn(b, co, t, generator=torch.Generator().manual_seed(1)).cuda()
+        got = U.fused_uconv_block(x, p, depth, bf)
+        torch.cuda.synchronize()
+        want = U.uconv_block_levelwise(x, p, depth, bf)
+        snr = _snr_db(torch, want - x, got - x)
+        diff = (got - want).abs()
+        err, past = diff.max().item(), int((diff > PYRAMID_MAX_ABS).sum())
+        # what bf16 rounding flips alone give: the plain version in float64
+        want64 = U.uconv_block_levelwise(x.double(), {k: v.double() for k, v in p.items()},
+                                         depth, bf)
+        spread = (want.double() - want64).abs().max().item()
+        fp = U.fused_uconv_block(x, p, depth)
+        snr_fp = _snr_db(torch, fp - x, got - x)
+        print(f"{label}: vs its plain version {snr:.2f} dB on (out - x), max_abs_err "
+              f"{err:.3e}, {past} of {diff.numel()} outputs past {PYRAMID_MAX_ABS} (the plain "
+              f"version in fp32 and in float64 part by up to {spread:.3e}); vs the "
+              f"fp32-pyramid K1 {snr_fp:.2f} dB")
+        if not (snr >= PYRAMID_MIN_DB and past <= PYRAMID_FLIP_SHARE * diff.numel()
+                and err <= PYRAMID_FLIP_MAX):
+            raise RuntimeError(f"{label}: {snr:.2f} dB, {past} outputs past "
+                               f"{PYRAMID_MAX_ABS}, max |delta| {err:.3e}")
+        if not torch.equal(got, U.fused_uconv_block(x, p, depth, bf)):
+            raise RuntimeError(f"{label}: two calls differ")
+        call_bf = lambda: U.fused_uconv_block(x, p, depth, bf)
+        call_fp = lambda: U.fused_uconv_block(x, p, depth)
+        ms = {"bf16": time_ms(torch, call_bf), "fp32": time_ms(torch, call_fp),
+              "bf16_again": time_ms(torch, call_bf), "fp32_again": time_ms(torch, call_fp)}
+        plain_ms = time_ms(torch, lambda: U.uconv_block_levelwise(x, p, depth, bf),
+                           warmup=1, reps=5)
+        parts = {k: device_ms_by_kernel(torch, c, 20) for k, c in (("bf16", call_bf),
+                                                                   ("fp32", call_fp))}
+        acc_in = torch.randn(b, ci, t, generator=torch.Generator().manual_seed(2)).cuda()
+        lib_ms = time_ms(torch, lambda: (torch.matmul(p["proj_w"], x),
+                                         torch.matmul(p["res_w"], acc_in)))
+        bound = k1_bound(b, co, ci, t, depth)
+        ub = {k: upsum_bound_ms(b, ci, t, depth, n) for k, n in (("bf16", 2), ("fp32", 4))}
+        print(f"{label} ms (median of 25, in turns bf16 / fp32 / bf16 / fp32): "
+              f"{ms['bf16']:.4f} / {ms['fp32']:.4f} / {ms['bf16_again']:.4f} / "
+              f"{ms['fp32_again']:.4f}; plain {plain_ms:.3f}; torch.matmul of its two "
+              f"products {lib_ms:.4f}; bound {bound['bound_ms']:.4f} ({bound['bound_by']})")
+        for k in ("bf16", "fp32"):
+            print(f"{label} device ms per call by part, {k} pyramid (torch.profiler, 20 "
+                  "calls): " + (", ".join(f"{n} {parts[k][n]:.4f}" for n in K1_PARTS
+                                         if n in parts[k]) or "not measured")
+                  + f"; upsum bound {ub[k]:.4f} ms ({'2' if k == 'bf16' else '4'}-byte "
+                  "levels read once, fp32 acc written once)")
+        rows[name] = dict(
+            shape=f"B,Co,Ci,T,depth={b},{co},{ci},{t},{depth}", max_abs_err=err,
+            outputs_past_2e_3=past, plain_fp32_vs_float64_max_abs=spread,
+            snr_vs_plain_db=snr, snr_vs_fp32_pyramid_db=snr_fp, ms=ms["bf16"],
+            ms_again=ms["bf16_again"], fp32_pyramid_ms=ms["fp32"],
+            fp32_pyramid_ms_again=ms["fp32_again"], plain_ms=plain_ms,
+            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], library_ms=lib_ms,
+            library_call="torch.matmul of the proj and res products",
+            parts_ms={k: parts["bf16"].get(k) for k in K1_PARTS},
+            fp32_pyramid_parts_ms={k: parts["fp32"].get(k) for k in K1_PARTS},
+            bit_identical=True)
+    return rows
+
+
+def k1_float64_phase(torch, U) -> dict:
+    """K1 and the fp32 plain block, each against a float64 plain block on
+    the same input, at K = Co = 256 and 512: if K1's error grew faster with
+    K than the fp32 reference's, its hi/lo summation would be at fault."""
+    out = {}
+    for b, co, ci, t, depth in F64_SHAPES:
+        p = block_params(torch, depth, ci, co, seed=0)
+        x = torch.randn(b, co, t, generator=torch.Generator().manual_seed(1)).cuda()
+        want = U.uconv_block_reference(x.double(), {k: v.double() for k, v in p.items()}, depth)
+        errs = {}
+        for form, y in (("k1", U.fused_uconv_block(x, p, depth)),
+                        ("fp32_reference", U.uconv_block_reference(x, p, depth)),
+                        ("fp32_levelwise", U.uconv_block_levelwise(x, p, depth))):
+            d = y.double() - want
+            errs[form] = dict(max_abs=d.abs().max().item(), rms=d.pow(2).mean().sqrt().item())
+        print(f"K1 float64 check {(b, co, ci, t, depth)}: max |err| / rms against float64: "
+              + "; ".join(f"{k} {v['max_abs']:.3e} / {v['rms']:.3e}" for k, v in errs.items()))
+        out[f"K={co}"] = errs
+    for form in ("k1", "fp32_reference", "fp32_levelwise"):
+        lo, hi = out[f"K={F64_SHAPES[0][1]}"][form], out[f"K={F64_SHAPES[1][1]}"][form]
+        print(f"K1 float64 check: {form} error growth K=256 -> 512: max x"
+              f"{hi['max_abs'] / lo['max_abs']:.2f}, rms x{hi['rms'] / lo['rms']:.2f}")
+    return out
+
+
+def bf16_serve_phase(torch, np, model_type: str, hp: dict, device: str = "cuda") -> dict:
+    """bf16 serving of ``hp``: every impl of the fast forward with
+    ``compute_dtype="bfloat16"`` from a copy cast once for it (the 'kernel'
+    copy rounded and held in fp32, the others' in bf16), against its own fp32
+    output (>= BF16_GATE_DB), K1 counted; the kernel impl also with K1's
+    bf16 pyramid; kernel against xla in bf16; bs4 and bs8 times."""
+    from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.models import fast_inference as fi
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+
+    gc = model_type == "groupcomm_v2"
+    forward = fi.groupcomm_forward_fast if gc else fi.improved_forward_fast
+    tag = "GC U16/512" if gc else "U16/512"
+    chunk = int(CHUNK_SECONDS * FS)
+    model = models.get_model(model_type, **hp, device=device,
+                             generator=torch.Generator().manual_seed(0)).eval()
+    casts = {impl: fi.cast_model(model, torch.bfloat16, impl) for impl in ("kernel", None)}
+    cast = lambda impl: casts["kernel" if impl == "kernel" else None]  # noqa: E731
+    rng = np.random.default_rng(3)
+    xs = {bs: torch.from_numpy(rng.standard_normal((bs, 1, chunk)).astype(np.float32)).to(device)
+          for bs in SERVE_BATCHES}
+    x = xs[BATCH]
+    # name -> the bf16 forward's arguments
+    variants = {i: dict(impl=i, compute_dtype="bfloat16", pyramid_dtype=torch.float32)
+                for i in (fi.GC_IMPLS if gc else ("kernel", "fma", "xla"))}
+    variants["kernel_bf16_pyramid"] = dict(variants["kernel"], pyramid_dtype=torch.bfloat16)
+    out, outs = {}, {}
+    for name, kw in variants.items():
+        impl = kw["impl"]
+        fp = forward(model, x, impl=impl)
+        U.fused_uconv_block.launches = U.fused_uconv_block.launches_bf16_pyramid = 0
+        bf = forward(cast(impl), x, **kw)
+        launches = (U.fused_uconv_block.launches, U.fused_uconv_block.launches_bf16_pyramid)
+        fid = fidelity_db(np, fp.double().cpu().numpy(), bf.double().cpu().numpy())
+        outs[name] = bf
+        want = (hp["num_blocks"], hp["num_blocks"] if name == "kernel_bf16_pyramid" else 0) \
+            if impl == "kernel" and device == "cuda" else (0, 0)
+        print(f"{tag} bs{BATCH} bf16 forward {name}: {fid:.2f} dB against its fp32 forward, "
+              f"K1 launches {launches[0]} (bf16 pyramid {launches[1]})")
+        if bf.dtype != torch.float32 or not torch.isfinite(bf).all():
+            raise RuntimeError(f"{tag} bf16 {name}: output {bf.dtype}")
+        if not fid >= BF16_GATE_DB or launches != want:
+            raise RuntimeError(f"{tag} bf16 {name}: {fid:.2f} dB, launches {launches}, "
+                               f"want >= {BF16_GATE_DB} dB and {want}")
+        out[name] = dict(fidelity_vs_fp32_db=fid, k1_launches=launches[0],
+                         k1_bf16_pyramid_launches=launches[1])
+    kx = fidelity_db(np, outs["xla"].double().cpu().numpy(), outs["kernel"].double().cpu().numpy())
+    print(f"{tag} bs{BATCH} bf16 forward kernel against xla: {kx:.2f} dB")
+    out["kernel_vs_xla_db"] = kx
+    if device != "cuda":
+        return out
+    for name, kw in variants.items():
+        for bs, xb in xs.items():
+            ms = time_ms(torch, lambda: forward(cast(kw["impl"]), xb, **kw), reps=10)
+            out[name][f"bs{bs}_ms"] = ms
+            out[name][f"bs{bs}_audio_s_per_s"] = bs * CHUNK_SECONDS / (ms / 1e3)
+        print(f"{tag} bf16 forward {name}: bs4 {out[name]['bs4_ms']:.3f} ms "
+              f"({out[name]['bs4_audio_s_per_s']:.1f} audio-s/s), bs8 {out[name]['bs8_ms']:.3f} "
+              f"ms ({out[name]['bs8_audio_s_per_s']:.1f} audio-s/s), median of 10")
+    return out
+
+
+def int8_phase(torch, np, model_type: str, hp: dict, device: str = "cuda") -> dict:
+    """int8 serving of ``hp`` at bs8 (``models/quantized.py``): fidelity of
+    the dynamic and the static (calibrated) forward against the fp32 serving
+    forward, the 25 dB gate, the times, and that ``torch._int_mm`` ran on
+    the card at every quantized site."""
+    from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.models import fast_inference as fi
+    from sudo_rm_rf_tpu_torch.models import quantized as q
+
+    gc = model_type == "groupcomm_v2"
+    tag = "GC U16/512" if gc else "U16/512"
+    chunk = int(CHUNK_SECONDS * FS)
+    model = models.get_model(model_type, **hp, device=device,
+                             generator=torch.Generator().manual_seed(0)).eval()
+    kw = dict(upsampling_depth=hp["upsampling_depth"], enc_kernel_size=hp["enc_kernel_size"],
+              num_sources=hp["num_sources"])
+    if gc:
+        kw.update(num_blocks=hp["num_blocks"], group_size=hp["group_size"])
+        qp, fwd, calib = q.quantize_gc_params(model), q.groupcomm_forward_int8, q.calibrate_gc_scales
+        ref_fwd, sites = fi.groupcomm_forward_fast, 4 * hp["num_blocks"] + 2
+    else:
+        qp = q.quantize_improved_params(model)
+        fwd, calib = q.improved_forward_int8, q.calibrate_improved_scales
+        ref_fwd, sites = fi.improved_forward_fast, 2 * hp["num_blocks"] + 2
+    rng = np.random.default_rng(4)
+    x8 = torch.from_numpy(rng.standard_normal((8, 1, chunk)).astype(np.float32)).to(device)
+    held_out = torch.from_numpy(rng.standard_normal((BATCH, 1, chunk)).astype(np.float32))
+    scales = calib(qp, held_out.to(device), **kw)
+    ref = ref_fwd(model, x8)
+    out = {}
+    for mode, sc in (("dynamic", None), ("static", scales)):
+        y = fwd(qp, x8, scales=sc, **kw)
+        fid = q.fidelity_db(ref, y)
+        print(f"{tag} bs8 int8 {mode} scales: {fid:.2f} dB against the fp32 serving forward "
+              f"(gate {INT8_GATE_DB} dB: {'passed' if fid >= INT8_GATE_DB else 'failed'})")
+        if y.dtype != torch.float32 or not torch.isfinite(y).all() or not fid >= INT8_MIN_DB:
+            raise RuntimeError(f"{tag} int8 {mode}: {fid:.2f} dB, output {y.dtype}")
+        out[mode] = dict(fidelity_db=fid, gate_passed=fid >= INT8_GATE_DB)
+    if device != "cuda":
+        return out
+    for mode, sc in (("dynamic", None), ("static", scales)):
+        ms = time_ms(torch, lambda: fwd(qp, x8, scales=sc, **kw), reps=10)
+        out[mode].update(bs8_ms=ms, bs8_audio_s_per_s=8 * CHUNK_SECONDS / (ms / 1e3))
+        print(f"{tag} bs8 int8 {mode}: {ms:.3f} ms ({8 * CHUNK_SECONDS / (ms / 1e3):.1f} "
+              "audio-s/s), median of 10")
+    # torch._int_mm on the card: one static forward under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fwd(qp, x8, scales=scales, **kw)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.key == "aten::_int_mm"]
+    calls = ev[0].count if ev else 0
+    dev_ms = (getattr(ev[0], "device_time_total", None) or getattr(ev[0], "cuda_time_total", 0)) \
+        / 1e3 if ev else 0.0
+    print(f"{tag} bs8 int8 static forward: aten::_int_mm called {calls} times (quantized "
+          f"sites {sites}), device ms under it {dev_ms:.3f} (torch.profiler)")
+    if calls != sites:
+        raise RuntimeError(f"{tag}: torch._int_mm ran {calls} times, want {sites}")
+    out.update(int_mm_calls=calls, int_mm_device_ms=dev_ms)
+    return out
+
+
+def bench_phase(torch) -> dict:
+    """``sudo-torch-bench`` at the zoo's U16/512, GroupComm and U36 rows (bs1
+    and bs4, fp32 and bf16) and one backward row, K1 counted, then the
+    headline ``python -m sudo_rm_rf_tpu_torch.bench``; its gates printed."""
+    from sudo_rm_rf_tpu_torch import bench as headline
+    from sudo_rm_rf_tpu_torch.cli.bench import main as bench_main
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+
+    zoo = ["--models", "sudormrf_R16", "groupcomm_R16", "sudormrf_R36_B4096",
+           "--batch_sizes", "1", "4"]
+    runs = {
+        "fp32": zoo,
+        "bf16": zoo + ["--dtype", "bfloat16"],
+        "backward": ["--models", "sudormrf_R16", "--measures", "backward", "--batch_sizes", "4"],
+    }
+    out = {}
+    for name, argv in runs.items():
+        # each bench run, with the kernel counts at 0 just before it
+        U.fused_uconv_block.launches = 0
+        t0 = time.perf_counter()
+        rows = [json.loads(line) for line in run_cli(bench_main, argv).strip().splitlines()]
+        out[name] = dict(rows=rows, seconds=time.perf_counter() - t0,
+                         k1_launches=U.fused_uconv_block.launches)
+        print(f"sudo-torch-bench {name}: {len(rows)} rows in {out[name]['seconds']:.1f} s, K1 "
+              f"launches {out[name]['k1_launches']}")
+        if any(not r["secs_per_batch"] > 0 or "mfu_pct" not in r for r in rows):
+            raise RuntimeError(f"sudo-torch-bench {name}: a row lacks a time or mfu_pct")
+    if not (out["fp32"]["k1_launches"] and out["bf16"]["k1_launches"]):
+        raise RuntimeError("the bench's serving rows did not run K1")
+    U.fused_uconv_block.launches = 0
+    t0 = time.perf_counter()
+    line = json.loads(run_cli(headline.main, []).strip().splitlines()[-1])
+    print(f"headline: {line['value']} {line['unit']} ({line['config']}), bf16 gate "
+          f"{'passed' if line['bf16_gate_passed'] else 'failed'} at "
+          f"{line['bf16_fidelity_db']} dB, int8 gate "
+          f"{'passed' if line['int8_gate_passed'] else 'failed'} at "
+          f"{line['int8_fidelity_db']} dB; K1 launches {U.fused_uconv_block.launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    out["headline"] = line
+    return out
+
+
+PHASES = ("k1", "k1_bf16", "float64", "serve", "train", "evaluate", "recipes", "bf16",
+          "int8", "bench")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", nargs="+", choices=PHASES, default=list(PHASES),
+                    help="run these phases only (a rehearsal: no kernels or ok line)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -989,8 +1301,8 @@ def main() -> int:
         for line in log.read_text().splitlines():
             m = re.search(r"Compiling entry function .*?([a-z]+_kernel)((?:L[a-z]\d+E|I)*)", line)
             if m:  # template arguments, as in gemm_kernel<2,1,1>
-                args = re.findall(r"L[a-z](\d+)E", m.group(2))
-                name = m.group(1) + (f"<{','.join(args)}>" if args else "")
+                args_ = re.findall(r"L[a-z](\d+)E", m.group(2))
+                name = m.group(1) + (f"<{','.join(args_)}>" if args_ else "")
             if "Used" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
     hmma = tensor_core_instructions(_build.library_path())
@@ -1001,46 +1313,105 @@ def main() -> int:
         if hmma == 0:
             raise RuntimeError("the GEMM kernels hold no tensor-core instruction")
 
-    # 3. the kernel against its plain version
-    k1 = k1_phase(torch, U, _build.load_kernels(), hmma)
+    res, seconds = {}, {}
+
+    def phase(name, fn):
+        if name not in args.only:
+            return
+        t0 = time.perf_counter()
+        res[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
+
+    # 3. the kernel against its plain version; its bf16 pyramid; float64
+    phase("k1", lambda: k1_phase(torch, U, _build.load_kernels(), hmma))
+    phase("k1_bf16", lambda: k1_bf16_phase(torch, U))
+    phase("float64", lambda: k1_float64_phase(torch, U))
 
     # 4. and 5. the serving paths through the CLI
-    with tempfile.TemporaryDirectory() as tmp:
-        serve = serve_phase(torch, np, tmp, "relu", FLAGSHIP)
-        serve_gc = serve_phase(torch, np, tmp, "groupcomm_v2", GROUPCOMM,
-                               ["--mixture_consistency", "uniform"])
-    print(json.dumps({"serve": {"relu": serve, "groupcomm_v2": serve_gc}}))
+    def serve():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = {"relu": serve_phase(torch, np, tmp, "relu", FLAGSHIP),
+                   "groupcomm_v2": serve_phase(torch, np, tmp, "groupcomm_v2", GROUPCOMM,
+                                               ["--mixture_consistency", "uniform"])}
+        print(json.dumps({"serve": out}))
+        return out
+
+    phase("serve", serve)
 
     # 6. and 7. the training paths
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        root = write_wham_corpus(os.path.join(tmp, "wham"), TRAIN_FILES, VAL_FILES,
-                                 CHUNK_SECONDS, FS, seed=0)
-        print(f"train: corpus of {TRAIN_FILES} + {VAL_FILES} wavs of {CHUNK_SECONDS} s "
-              f"in {time.perf_counter() - t0:.1f} s")
-        train = train_phase(torch, np, tmp, root, FLAGSHIP)
-        train_gc = gc_train_phase(torch, np, tmp, root, GROUPCOMM)
-    print(json.dumps({"train": train, "train_gc": train_gc}))
+    def train():
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            root = write_wham_corpus(os.path.join(tmp, "wham"), TRAIN_FILES, VAL_FILES,
+                                     CHUNK_SECONDS, FS, seed=0)
+            print(f"train: corpus of {TRAIN_FILES} + {VAL_FILES} wavs of {CHUNK_SECONDS} s "
+                  f"in {time.perf_counter() - t0:.1f} s")
+            out = {"train": train_phase(torch, np, tmp, root, FLAGSHIP),
+                   "train_gc": gc_train_phase(torch, np, tmp, root, GROUPCOMM)}
+        print(json.dumps(out))
+        return out
+
+    phase("train", train)
 
     # 8. evaluation of U36/Bases4096 at 16 kHz
-    with tempfile.TemporaryDirectory() as tmp:
-        evaluation = eval_phase(torch, np, tmp, U36)
-    print(json.dumps({"evaluate": evaluation}))
+    def evaluate():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = eval_phase(torch, np, tmp, U36)
+        print(json.dumps({"evaluate": out}))
+        return out
+
+    phase("evaluate", evaluate)
 
     # 9. the WHAMR and FUSS recipes
-    with tempfile.TemporaryDirectory() as tmp:
-        recipes = {name: recipe_train_phase(torch, np, tmp, name, run)
+    def recipes():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = {name: recipe_train_phase(torch, np, tmp, name, run)
                    for name, run in RECIPE_RUNS.items()}
-    print(json.dumps({"train_recipes": recipes}))
+        print(json.dumps({"train_recipes": out}))
+        return out
 
-    flagship = k1["flagship"]
+    phase("recipes", recipes)
+
+    # 10. reduced-precision serving: bf16 and int8; 11. the bench
+    def bf16():
+        out = {"relu": bf16_serve_phase(torch, np, "relu", FLAGSHIP),
+               "groupcomm_v2": bf16_serve_phase(torch, np, "groupcomm_v2", GROUPCOMM)}
+        print(json.dumps({"serve_bf16": out}))
+        return out
+
+    def int8():
+        out = {"relu": int8_phase(torch, np, "relu", FLAGSHIP),
+               "groupcomm_v2": int8_phase(torch, np, "groupcomm_v2", GROUPCOMM)}
+        print(json.dumps({"serve_int8": out}))
+        return out
+
+    def bench():
+        out = bench_phase(torch)
+        print(json.dumps({"bench": out}))
+        return out
+
+    phase("bf16", bf16)
+    phase("int8", int8)
+    phase("bench", bench)
+    print(f"phase seconds: {json.dumps(seconds)}")
+    if set(args.only) != set(PHASES):
+        print(f"chip_smoke: ran {args.only} only; no kernels line and no ok line")
+        return 0
+
+    serve, k1 = res["serve"], res["k1"]
+    train, train_gc = res["train"]["train"], res["train"]["train_gc"]
+    evaluation, recipes = res["evaluate"], res["recipes"]
+    flagship, pyr = k1["flagship"], res["k1_bf16"]
+    bench_runs = res["bench"]
     print(json.dumps({"kernels": [{
         "name": "fused_uconv_block", "route": "cuda",
         "source": "sudo_rm_rf_tpu_torch/csrc/uconv.cu",
         "replaces": "sudo_rm_rf_tpu/ops/pallas/uconv.py:370",
-        "launches": serve["launches"], "launches_per_forward": serve["launches_per_forward"],
-        "launches_gc": serve_gc["launches"],
-        "launches_per_gc_forward": serve_gc["launches_per_forward"],
+        "launches": serve["relu"]["launches"],
+        "launches_per_forward": serve["relu"]["launches_per_forward"],
+        "launches_gc": serve["groupcomm_v2"]["launches"],
+        "launches_per_gc_forward": serve["groupcomm_v2"]["launches_per_forward"],
         "launches_training_path": train["train_launches"],
         "launches_gc_training_path": train_gc["train_launches"],
         "launches_eval_path": evaluation["crops"]["launches"],
@@ -1048,7 +1419,18 @@ def main() -> int:
         "launches_per_u36_forward": evaluation["launches_per_forward"],
         **{f"launches_{name.lower()}_training_path": r["train_launches"]
            for name, r in recipes.items()},
+        "launches_bf16_serving": res["bf16"]["relu"]["kernel"]["k1_launches"],
+        "launches_bench_fp32": bench_runs["fp32"]["k1_launches"],
         **flagship, "gc_shape": k1["groupcomm"], "u36_shape": k1["u36"],
+        "float64_check": res["float64"],
+    }, {
+        "name": "fused_uconv_block(pyramid_dtype=bfloat16)", "route": "cuda",
+        "source": "sudo_rm_rf_tpu_torch/csrc/uconv.cu",
+        "replaces": "sudo_rm_rf_tpu/ops/pallas/uconv.py:370 (pyramid_dtype, :368)",
+        "launches": res["bf16"]["relu"]["kernel_bf16_pyramid"]["k1_bf16_pyramid_launches"],
+        "launches_gc_bf16_serving": res["bf16"]["groupcomm_v2"]["kernel_bf16_pyramid"][
+            "k1_bf16_pyramid_launches"],
+        **pyr["flagship"], "gc_shape": pyr["groupcomm"], "u36_shape": pyr["u36"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,14 @@ per example as one JSON line (the JAX CLI's keys):
 
 ``--full_length`` scores whole recordings (padded to the split's longest)
 through the overlap-add separator, ``--batch_size`` chunks a forward.
+
+Departure from the JAX CLI, for ``--dataset FUSS``: an example's target
+stack is zero-padded to ``--num_sources`` rows, and the JAX CLI scores the
+zero rows too (a zero target's SI-SDR is -inf, which its permutation einsum
+turns into NaN, so every mean is NaN). The port scores each example over its
+active (non-zero) targets only, as training's per-source-count validation
+does (:func:`fuss_scores`); an example whose rows are all active is scored
+as before.
 """
 
 from __future__ import annotations
@@ -73,6 +81,73 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_heads", type=int, default=4)
     p.add_argument("--att_dims", type=int, default=256)
     return p
+
+
+def _scores(est, tgt, mix, taps: int) -> dict:
+    """Per-example SI-SDR, SI-SDRi (over the batch-mean mixture baseline)
+    and BSS-eval SDR, SDRi, SIR and SAR (each example's mean over its
+    sources) of est (B, S, T) against tgt (B, S, T)."""
+    from sudo_rm_rf_tpu_torch import losses
+
+    kw = dict(n_sources=tgt.shape[1], zero_mean=True, backward_loss=False,
+              return_individual_results=True)
+    out = {"si_sdr": losses.PermInvariantSISDR(**kw)(est, tgt).cpu().tolist(),
+           "si_sdri": losses.PermInvariantSISDR(improvement=True, **kw)(
+               est, tgt, initial_mixtures=mix).cpu().tolist()}
+    bss = losses.bss_eval_improvement(est, tgt, mix, filter_taps=taps)
+    for ours, theirs in (("sdr", "sdr"), ("sdri", "sdr_i"), ("sir", "sir"), ("sar", "sar")):
+        out[ours] = bss[theirs].mean(-1).cpu().tolist()
+    return out
+
+
+def fuss_scores(est, tgt, mix, taps: int) -> dict:
+    """FUSS scores of a batch, each example over its active targets.
+
+    tgt (B, S, T) holds each example's sources and zero rows after them.
+    Examples are scored in groups of one active-source count n: n == S as
+    :func:`_scores`; 1 < n < S with the stabilized SI-SDR over the P(S, n)
+    injections of targets into estimates (and its improvement over the sum
+    of the targets), BSS-eval on the estimates that injection picked; n == 1
+    on estimate slot 0, as training's validation scores it, without an
+    improvement (the mixture is the target itself): such examples add no
+    SI-SDRi and no SDRi. Returns the per-example lists in batch order."""
+    import torch
+
+    from sudo_rm_rf_tpu_torch import losses
+
+    s = tgt.shape[1]
+    active = tgt.abs().amax(dim=-1) > 0  # (B, S)
+    counts = active.sum(dim=1).tolist()
+    if min(counts) == 0:
+        raise ValueError("a FUSS example has no active source")
+    per_example = [dict() for _ in counts]
+    for n in sorted(set(counts)):
+        idx = [i for i, c in enumerate(counts) if c == n]
+        e, m = est[idx], mix[idx]
+        t = torch.stack([tgt[i][active[i]] for i in idx])
+        if n == s:
+            got = _scores(e, t, m, taps)
+        else:
+            kw = dict(zero_mean=True, backward_loss=False, return_individual_results=True)
+            n_est = s if n > 1 else 1
+            e = e if n > 1 else e[:, :1]
+            metric = losses.StabilizedPermInvSISDRMetric(
+                n_estimated_sources=n_est, n_actual_sources=n, **kw)
+            si, perm = metric(e, t, return_best_permutation=True)
+            picked = torch.stack([e[j, perm[j]] for j in range(len(idx))])
+            bss = losses.bss_eval_improvement(picked, t, m, filter_taps=taps)
+            got = {"si_sdr": si.cpu().tolist(),
+                   **{ours: bss[theirs].mean(-1).cpu().tolist()
+                      for ours, theirs in (("sdr", "sdr"), ("sir", "sir"), ("sar", "sar"))}}
+            if n > 1:
+                got["si_sdri"] = losses.StabilizedPermInvSISDRMetric(
+                    n_estimated_sources=n_est, n_actual_sources=n, improvement=True,
+                    **kw)(e, t).cpu().tolist()
+                got["sdri"] = bss["sdr_i"].mean(-1).cpu().tolist()
+        for j, i in enumerate(idx):
+            per_example[i] = {k: v[j] for k, v in got.items()}
+    keys = ("si_sdr", "si_sdri", "sdr", "sdri", "sir", "sar")
+    return {k: [ex[k] for ex in per_example if k in ex] for k in keys}
 
 
 def main(argv=None):
@@ -136,15 +211,6 @@ def main(argv=None):
         shuffle=False, num_workers=2,
     )
 
-    sisdr = losses.PermInvariantSISDR(
-        n_sources=args.num_sources, zero_mean=True, backward_loss=False,
-        return_individual_results=True,
-    )
-    sisdri = losses.PermInvariantSISDR(
-        n_sources=args.num_sources, zero_mean=True, backward_loss=False,
-        improvement=True, return_individual_results=True,
-    )
-
     @torch.no_grad()
     def forward(mixture):  # (B, 1, T)
         mean = mixture.mean(dim=-1, keepdim=True)
@@ -189,13 +255,9 @@ def main(argv=None):
             est = torch.from_numpy(ola.separate(mixture[0, 0])[None]).to(device)
         else:
             est = forward(mix)
-        results["si_sdr"] += sisdr(est, tgt).cpu().tolist()
-        results["si_sdri"] += sisdri(est, tgt, initial_mixtures=mix).cpu().tolist()
-        # BSS-eval SDR/SIR/SAR and SDRi, each example's mean over its sources
-        bss = losses.bss_eval_improvement(est, tgt, mix, filter_taps=args.bss_filter_taps)
-        for ours, theirs in (("sdr", "sdr"), ("sdri", "sdr_i"), ("sir", "sir"),
-                             ("sar", "sar")):
-            results[ours] += bss[theirs].mean(-1).cpu().tolist()
+        score = fuss_scores if args.dataset == "FUSS" else _scores
+        for k, v in score(est, tgt, mix, args.bss_filter_taps).items():
+            results[k] += v
 
     summary = {k + "_mean": float(np.mean(v)) for k, v in results.items() if v}
     summary.update({k + "_median": float(np.median(v)) for k, v in results.items() if v})

@@ -1,6 +1,7 @@
 """`sudo-torch-separate`: separate wav files with a torch checkpoint.
 
-Counterpart of ``sudo_rm_rf_tpu/cli/separate.py`` in its overlap-add mode.
+Counterpart of ``sudo_rm_rf_tpu/cli/separate.py`` in its overlap-add mode
+(``--mode overlap_add``, the default; ``seq_parallel`` raises).
 Takes a ``.pt`` holding a state_dict (the published format, or one written
 from JAX params with ``convert.load_jax_params``) or a whole pickled module,
 and serves it on ``--device`` through ``improved_forward_fast`` (model types
@@ -32,6 +33,10 @@ def main(argv=None):
     p.add_argument("--num_sources", type=int, default=2)
     p.add_argument("--mixture_consistency", default=None,
                    choices=[None, "uniform", "magsq"])
+    p.add_argument("--mode", default="overlap_add",
+                   choices=["overlap_add", "seq_parallel"],
+                   help="overlap_add: COLA chunking (any model); seq_parallel "
+                        "is not ported (ROADMAP queue 1, item 10)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on; never falls back to the CPU")
     p.add_argument("--reference_root", default=None,
@@ -47,6 +52,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not args.checkpoint.endswith(".pt"):
         p.error("--checkpoint must be a torch .pt file")
+    if args.mode == "seq_parallel":
+        raise NotImplementedError(
+            "--mode seq_parallel is not ported yet (ROADMAP queue 1, item 10)")
 
     import torch
 

@@ -28,8 +28,13 @@
 //
 // What the design does about it:
 // * GEMMs on the tensor cores in 3xTF32: each operand v is split into
-//   hi = tf32(v) and lo = tf32(v - hi) (cvt.rna), and the kernel accumulates
-//   lo*hi + hi*lo + hi*hi in fp32, which keeps fp32-level accuracy. wgmma
+//   hi = tf32(v) and lo = tf32(v - hi) (cvt.rna), and the kernel sums
+//   lo*hi + hi*lo + hi*hi in fp32. The tensor cores add into their
+//   accumulator without rounding to nearest, so a sum kept there over the
+//   whole reduction drifts with its length (it was ~8x the fp32 reference's
+//   error against float64); each 32-deep stage is summed afresh on the
+//   tensor cores and added to the running fp32 sum in registers, which
+//   rounds to nearest, and the result is as accurate as an fp32 GEMM. wgmma
 //   takes tf32 operands from shared memory only K-major, and x's tile
 //   (channels x time, time contiguous) is not, so the product is taken
 //   transposed, as the TPU kernel does: out^T (time x channels) = x^T W^T.
@@ -42,10 +47,10 @@
 //   and each k step's fragments are built while the previous step's wgmmas
 //   run. The epilogue transposes the tile through shared memory, so that
 //   bias, residual and stores move 16 bytes a thread along T.
-// * Two blocks share an SM (<= 128 registers a thread, ~101 KB of shared
+// * Two blocks share an SM (<= 128 registers a thread, ~69 KB of shared
 //   memory a block), so one block's loads and epilogue overlap the other's
-//   tensor-core work; the tile is 64 channels wide where 128 would leave SMs
-//   idle (B=1 at the flagship shape).
+//   tensor-core work. The tile is 64 channels wide: the stage sum and the
+//   running sum of a 128-channel tile would not fit 128 registers.
 // * The upsample-sum works on chunks of 8 outputs a thread: float4 loads of
 //   level 0, one load per 2^k outputs of level k, float4 stores, and the
 //   chunk's exact (mean, M2) merged with Chan's formula once per chunk.
@@ -54,11 +59,21 @@
 // registers and merged in a fixed order with Chan's formula; the fold kernel
 // merges the tiles in float64 in a fixed order. No atomics, so the result is
 // the same on every run; no one-pass E[x^2] - E[x]^2.
+//
+// Pyramid type (the TPU kernel's pyramid_dtype): fp32 or bf16. With bf16 the
+// ladder keeps the TPU kernel's semantics: each level's statistics come from
+// its fp32 values, level k + 1 reads level k in fp32 (from a ping-pong pair
+// of fp32 planes, the proj output's and one more), and only the stored
+// pyramid, which the upsample-sum reads and upcasts, is bf16 (rounded to
+// nearest even). That halves the bytes the upsample-sum reads; the ladder
+// writes 6 bytes an output in place of 4.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -70,20 +85,21 @@ constexpr int BK = 32;              // reduction depth of a stage: one 128-byte 
 constexpr int XP = BT + 8;          // x tile pitch in floats: conflict-free fragment reads
 constexpr int STAGES = 2;           // cp.async ring depth: two blocks fit on an SM
 constexpr int SUB = 64;             // statistics sub-tile: 64 channels x 64 time steps
-constexpr int WPAD_M = 128;         // split weights: rows padded to the widest tile
+constexpr int BN = 64;              // channels of a GEMM block's tile
+constexpr int WPAD_M = BN;          // split weights: rows padded to whole tiles
 constexpr int CHUNK = 8;            // upsample-sum outputs per thread and chunk
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int round_up(int a, int b) { return cdiv(a, b) * b; }
 
-// Shared memory of one GEMM stage for a tile of 64 * NJ channels: W hi and lo
-// (64 * NJ rows of 128 bytes each), the x tile, the fold's (a, b) of its BK
-// channels; rounded to the 1024-byte swizzle atom.
-__host__ __device__ constexpr int w_bytes(int nj) { return 64 * nj * 128; }
-__host__ __device__ constexpr int x_off(int nj) { return 2 * w_bytes(nj); }
-__host__ __device__ constexpr int ab_off(int nj) { return x_off(nj) + BK * XP * 4; }
-__host__ __device__ constexpr int stage_bytes(int nj) { return (ab_off(nj) + 2 * BK * 4 + 1023) / 1024 * 1024; }
-__host__ __device__ constexpr int gemm_smem(int nj) { return STAGES * stage_bytes(nj) + 1024; }
+// Shared memory of one GEMM stage: W hi and lo (BN rows of 128 bytes each),
+// the x tile, the fold's (a, b) of its BK channels; rounded to the 1024-byte
+// swizzle atom.
+constexpr int W_BYTES = BN * 128;
+constexpr int X_OFF = 2 * W_BYTES;
+constexpr int AB_OFF = X_OFF + BK * XP * 4;
+constexpr int STAGE_BYTES = (AB_OFF + 2 * BK * 4 + 1023) / 1024 * 1024;
+constexpr int GEMM_SMEM = STAGES * STAGE_BYTES + 1024;
 
 // Chan's parallel merge of (n, mean, M2) moments.
 template <typename T>
@@ -182,8 +198,10 @@ __device__ inline uint64_t smem_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// d(64x64, fp32) += a(64x8, tf32, registers) * b(8x64, tf32, shared memory).
-__device__ inline void wgmma_m64n64k8(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+// d(64x64, fp32) = a(64x8, tf32, registers) * b(8x64, tf32, shared memory)
+// + (acc ? d : 0).
+__device__ inline void wgmma_m64n64k8(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                      int acc) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -199,29 +217,7 @@ __device__ inline void wgmma_m64n64k8(float (&d)[32], const uint32_t (&a)[4], ui
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d(64x128, fp32) += a(64x8, tf32, registers) * b(8x128, tf32, shared memory);
-// d[j] holds columns 64 j .. 64 j + 63 in the m64n64 accumulator layout.
-__device__ inline void wgmma_m64n128k8(float (&d)[2][32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
-        "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]), "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
-        "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]), "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
-        "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]), "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
-        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]), "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
-        "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]), "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
-        "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]), "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
 // ---- kernels --------------------------------------------------------------
@@ -254,21 +250,20 @@ __global__ void __launch_bounds__(NT) split_kernel(
 // aligned, so x, R and out move in 16-byte chunks.
 //
 // Block (x, y, b) computes out^T for time rows [BT x, BT x + BT) and channels
-// [64 NJ y, 64 NJ y + 64 NJ): warpgroup g takes time rows 64 g .. 64 g + 63
-// with one m64n(64 NJ)k8 accumulator. With partials set, it writes the
-// moments of each 64x64 sub-tile (channel tile i, time tile j) at
-// partials[3 * ((b * cdiv(M, 64) + i) * cdiv(N, 64) + j)].
-template <int NJ, bool PRO, bool VEC>
+// [BN y, BN y + BN): warpgroup g takes time rows 64 g .. 64 g + 63 with one
+// m64n64k8 accumulator. Each BK-deep stage is summed on the tensor cores from
+// zero (part) and added to the running sum (acc) in fp32 registers. With
+// partials set, it writes the moments of each 64x64 sub-tile (channel tile
+// i, time tile j) at partials[3 * ((b * cdiv(M, 64) + i) * cdiv(N, 64) + j)].
+template <bool PRO, bool VEC>
 __global__ void __launch_bounds__(GT, 2) gemm_kernel(
     const float* __restrict__ S, int kp, const float* __restrict__ X,
     const float* __restrict__ bias, const float* __restrict__ pa,
     const float* __restrict__ pb, const float* __restrict__ slope,
     const float* __restrict__ R, float* __restrict__ out,
     float* __restrict__ partials, int M, int K, int N) {
-  constexpr int BN = 64 * NJ, WB = w_bytes(NJ), XO = x_off(NJ), AO = ab_off(NJ);
-  constexpr int STAGE = stage_bytes(NJ);
   extern __shared__ unsigned char smem_raw[];
-  __shared__ float red[NJ][2][GT / 32][3];
+  __shared__ float red[2][GT / 32][3];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms are 1024-byte aligned
   unsigned char* sbase = smem_raw + (base - raw);
@@ -282,7 +277,7 @@ __global__ void __launch_bounds__(GT, 2) gemm_kernel(
 
   auto load = [&](int kt) {
     const int k0 = kt * BK;
-    const uint32_t st = base + (kt % STAGES) * STAGE;
+    const uint32_t st = base + (kt % STAGES) * STAGE_BYTES;
     // W hi and lo: BN rows x 8 chunks of 16 bytes, chunk c of row r at
     // r * 128 + 16 * (c ^ (r % 8)) (the 128-byte swizzle)
 #pragma unroll
@@ -291,10 +286,10 @@ __global__ void __launch_bounds__(GT, 2) gemm_kernel(
       const size_t g = (size_t)(m0 + r) * kp + k0 + 4 * c;
       const uint32_t d = st + r * 128 + ((c ^ (r & 7)) << 4);
       cp_async16(d, Shi + g, 16);
-      cp_async16(d + WB, Slo + g, 16);
+      cp_async16(d + W_BYTES, Slo + g, 16);
     }
     // x: BK channel rows x BT time steps, zero outside (K, N)
-    const uint32_t xs = st + XO;
+    const uint32_t xs = st + X_OFF;
     if (VEC) {
 #pragma unroll
       for (int i = 0; i < BK * BT / 4 / GT; ++i) {
@@ -315,15 +310,13 @@ __global__ void __launch_bounds__(GT, 2) gemm_kernel(
     if (PRO && tid < 2 * BK) {  // the fold's (a, b) of the stage's channels
       const int gk = k0 + tid % BK;
       const float* src = (tid < BK ? pa : pb) + (size_t)b * K;
-      cp_async4(st + AO + tid * 4, gk < K ? src + gk : src, gk < K ? 4 : 0);
+      cp_async4(st + AB_OFF + tid * 4, gk < K ? src + gk : src, gk < K ? 4 : 0);
     }
   };
 
-  float acc[NJ][32];
+  float acc[32], part[32];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int r = 0; r < 32; ++r) acc[j][r] = 0.f;
+  for (int r = 0; r < 32; ++r) acc[r] = part[r] = 0.f;
   const float sl = PRO ? *slope : 0.f;
   // this thread's fragment rows and columns (wgmma's tf32 A layout)
   const int frag_t = 64 * wg + 16 * warp + (lane >> 2), frag_k = lane & 3;
@@ -337,9 +330,9 @@ __global__ void __launch_bounds__(GT, 2) gemm_kernel(
     if (kt + 1 < KT) load(kt + 1);
     cp_async_commit();
 
-    const uint32_t st = base + (kt % STAGES) * STAGE;
-    const float* xs = reinterpret_cast<const float*>(sbase + (kt % STAGES) * STAGE + XO);
-    const float* ab = reinterpret_cast<const float*>(sbase + (kt % STAGES) * STAGE + AO);
+    const uint32_t st = base + (kt % STAGES) * STAGE_BYTES;
+    const float* xs = reinterpret_cast<const float*>(sbase + (kt % STAGES) * STAGE_BYTES + X_OFF);
+    const float* ab = reinterpret_cast<const float*>(sbase + (kt % STAGES) * STAGE_BYTES + AB_OFF);
     // one 8-deep k step: the x^T fragment (prologue applied) split into
     // tf32 hi and lo; a0: (t, k), a1: (t + 8, k), a2: (t, k + 4), a3: (t + 8, k + 4)
     auto frag = [&](int s, uint32_t (&h)[4], uint32_t (&l)[4]) {
@@ -354,18 +347,13 @@ __global__ void __launch_bounds__(GT, 2) gemm_kernel(
         split_tf32(v, h[q], l[q]);
       }
     };
-    // lo*hi + hi*lo + hi*hi of one k step into the accumulator
+    // lo*hi + hi*lo + hi*hi of one k step into the stage's sum; the stage's
+    // first product starts it afresh
     auto mma = [&](int s, const uint32_t (&h)[4], const uint32_t (&l)[4]) {
-      const uint64_t whi = smem_desc(st + 32 * s), wlo = smem_desc(st + WB + 32 * s);
-      if constexpr (NJ == 2) {
-        wgmma_m64n128k8(acc, l, whi);
-        wgmma_m64n128k8(acc, h, wlo);
-        wgmma_m64n128k8(acc, h, whi);
-      } else {
-        wgmma_m64n64k8(acc[0], l, whi);
-        wgmma_m64n64k8(acc[0], h, wlo);
-        wgmma_m64n64k8(acc[0], h, whi);
-      }
+      const uint64_t whi = smem_desc(st + 32 * s), wlo = smem_desc(st + W_BYTES + 32 * s);
+      wgmma_m64n64k8(part, l, whi, s != 0);
+      wgmma_m64n64k8(part, h, wlo, 1);
+      wgmma_m64n64k8(part, h, whi, 1);
     };
     // Fragments are double-buffered across k steps: step s + 1's are built
     // while step s's wgmmas run, once step s - 1's have released the buffer
@@ -396,9 +384,10 @@ __global__ void __launch_bounds__(GT, 2) gemm_kernel(
         pin(lo[u][q]);
       }
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int r = 0; r < 32; ++r) pin(acc[j][r]);
+    for (int r = 0; r < 32; ++r) {  // round to nearest, once a stage
+      pin(part[r]);
+      acc[r] += part[r];
+    }
   }
   cp_async_wait<0>();
 
@@ -406,99 +395,94 @@ __global__ void __launch_bounds__(GT, 2) gemm_kernel(
   // tile; then each thread takes 4 time steps of rows wid + 8 i, so that the
   // bias, residual and store move 16 bytes at a time along T, the residual
   // loads of 8 rows issued before their stores. Accumulator r of this thread
-  // sits at time frag_t + 8 ((r >> 1) & 1), channel 64 j + 8 (r >> 2) +
+  // sits at time frag_t + 8 ((r >> 1) & 1), channel 8 (r >> 2) +
   // 2 (lane & 3) + (r & 1).
   constexpr int TP = BT + 4;  // tile pitch: conflict-free writes
   float* tile = reinterpret_cast<float*>(sbase);
   __syncthreads();  // every warpgroup is done with the ring
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int r = 0; r < 32; ++r)
-      tile[(64 * j + 8 * (r >> 2) + 2 * (lane & 3) + (r & 1)) * TP + frag_t +
-           8 * ((r >> 1) & 1)] = acc[j][r];
+  for (int r = 0; r < 32; ++r)
+    tile[(8 * (r >> 2) + 2 * (lane & 3) + (r & 1)) * TP + frag_t + 8 * ((r >> 1) & 1)] = acc[r];
   __syncthreads();
   const int wid = tid >> 5, tq = 4 * lane, t = t0 + tq;
   const int valid = max(0, min(4, N - t));  // time steps of this thread's group
+  float4 res[8];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {  // rows 64 j .. 64 j + 63: one sub-tile's channels
-    float4 res[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + wid + 8 * (8 * j + i);
-      const size_t o = ((size_t)b * M + m) * N + t;
-      res[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (!R || m >= M) continue;
-      if (VEC && valid == 4) {
-        res[i] = *reinterpret_cast<const float4*>(R + o);
-      } else {
-        if (valid > 0) res[i].x = R[o];
-        if (valid > 1) res[i].y = R[o + 1];
-        if (valid > 2) res[i].z = R[o + 2];
-        if (valid > 3) res[i].w = R[o + 3];
-      }
-    }
-    float cnt = 0.f, sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int ml = wid + 8 * (8 * j + i), m = m0 + ml;
-      if (m >= M) continue;
-      const float bm = bias[m];
-      float4 v = *reinterpret_cast<const float4*>(tile + ml * TP + tq);
-      v.x += bm + res[i].x;
-      v.y += bm + res[i].y;
-      v.z += bm + res[i].z;
-      v.w += bm + res[i].w;
-      *reinterpret_cast<float4*>(tile + ml * TP + tq) = v;  // kept for the moments
-      const size_t o = ((size_t)b * M + m) * N + t;
-      if (VEC && valid == 4) {
-        *reinterpret_cast<float4*>(out + o) = v;
-      } else {
-        if (valid > 0) out[o] = v.x;
-        if (valid > 1) out[o + 1] = v.y;
-        if (valid > 2) out[o + 2] = v.z;
-        if (valid > 3) out[o + 3] = v.w;
-      }
-      cnt += (float)valid;
-      sum += (v.x + (valid > 1 ? v.y : 0.f)) + ((valid > 2 ? v.z : 0.f) + (valid > 3 ? v.w : 0.f));
-    }
-    if (!partials) continue;
-    // this thread's moments; then merged over each half-warp, whose lanes
-    // hold time steps 0-63 (lanes 0-15) or 64-127 (16-31) of the tile
-    float mean = cnt > 0.f ? sum / cnt : 0.f, m2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int ml = wid + 8 * (8 * j + i);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (m0 + ml < M && e < valid) {
-          const float d = tile[ml * TP + tq + e] - mean;
-          m2 += d * d;
-        }
-    }
-    float n = cnt;
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float nb = __shfl_down_sync(0xffffffffu, n, off);
-      const float mb = __shfl_down_sync(0xffffffffu, mean, off);
-      const float qb = __shfl_down_sync(0xffffffffu, m2, off);
-      chan_merge(n, mean, m2, nb, mb, qb);
-    }
-    if ((lane & 15) == 0) {
-      red[j][lane >> 4][wid][0] = n;
-      red[j][lane >> 4][wid][1] = mean;
-      red[j][lane >> 4][wid][2] = m2;
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + wid + 8 * i;
+    const size_t o = ((size_t)b * M + m) * N + t;
+    res[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (!R || m >= M) continue;
+    if (VEC && valid == 4) {
+      res[i] = *reinterpret_cast<const float4*>(R + o);
+    } else {
+      if (valid > 0) res[i].x = R[o];
+      if (valid > 1) res[i].y = R[o + 1];
+      if (valid > 2) res[i].z = R[o + 2];
+      if (valid > 3) res[i].w = R[o + 3];
     }
   }
+  float cnt = 0.f, sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int ml = wid + 8 * i, m = m0 + ml;
+    if (m >= M) continue;
+    const float bm = bias[m];
+    float4 v = *reinterpret_cast<const float4*>(tile + ml * TP + tq);
+    v.x += bm + res[i].x;
+    v.y += bm + res[i].y;
+    v.z += bm + res[i].z;
+    v.w += bm + res[i].w;
+    *reinterpret_cast<float4*>(tile + ml * TP + tq) = v;  // kept for the moments
+    const size_t o = ((size_t)b * M + m) * N + t;
+    if (VEC && valid == 4) {
+      *reinterpret_cast<float4*>(out + o) = v;
+    } else {
+      if (valid > 0) out[o] = v.x;
+      if (valid > 1) out[o + 1] = v.y;
+      if (valid > 2) out[o + 2] = v.z;
+      if (valid > 3) out[o + 3] = v.w;
+    }
+    cnt += (float)valid;
+    sum += (v.x + (valid > 1 ? v.y : 0.f)) + ((valid > 2 ? v.z : 0.f) + (valid > 3 ? v.w : 0.f));
+  }
   if (!partials) return;
+  // this thread's moments; then merged over each half-warp, whose lanes
+  // hold time steps 0-63 (lanes 0-15) or 64-127 (16-31) of the tile
+  float mean = cnt > 0.f ? sum / cnt : 0.f, m2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int ml = wid + 8 * i;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (m0 + ml < M && e < valid) {
+        const float d = tile[ml * TP + tq + e] - mean;
+        m2 += d * d;
+      }
+  }
+  float n = cnt;
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    const float nb = __shfl_down_sync(0xffffffffu, n, off);
+    const float mb = __shfl_down_sync(0xffffffffu, mean, off);
+    const float qb = __shfl_down_sync(0xffffffffu, m2, off);
+    chan_merge(n, mean, m2, nb, mb, qb);
+  }
+  if ((lane & 15) == 0) {
+    red[lane >> 4][wid][0] = n;
+    red[lane >> 4][wid][1] = mean;
+    red[lane >> 4][wid][2] = m2;
+  }
   __syncthreads();
-  if (tid >= 2 * NJ) return;
-  const int j = tid >> 1, half = tid & 1;  // one thread per sub-tile merges its warps
-  const int mt = cdiv(M, SUB), nt = cdiv(N, SUB), mi = m0 / SUB + j, ti = t0 / SUB + half;
+  if (tid >= 2) return;
+  const int half = tid;  // one thread per sub-tile merges its warps
+  const int mt = cdiv(M, SUB), nt = cdiv(N, SUB), mi = m0 / SUB, ti = t0 / SUB + half;
   if (mi >= mt || ti >= nt) return;
-  float n = red[j][half][0][0], mean = red[j][half][0][1], m2 = red[j][half][0][2];
+  n = red[half][0][0];
+  mean = red[half][0][1];
+  m2 = red[half][0][2];
   for (int w = 1; w < GT / 32; ++w)
-    chan_merge(n, mean, m2, red[j][half][w][0], red[j][half][w][1], red[j][half][w][2]);
+    chan_merge(n, mean, m2, red[half][w][0], red[half][w][1], red[half][w][2]);
   const size_t p = ((size_t)b * mt + mi) * nt + ti;
   partials[3 * p] = n;
   partials[3 * p + 1] = mean;
@@ -526,18 +510,26 @@ __global__ void __launch_bounds__(NT) fold_kernel(
   }
 }
 
+__device__ inline void store_level(float* p, float v) { *p = v; }
+__device__ inline void store_level(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // One block per (channel, batch) row: out[t] = bias + sum_j w[j] f(in[s t + j - 2])
 // for t < Tout, zero outside [0, Tin); f(v) = fa v + fb, then PReLU when slope
-// is set. Writes the row's moments at partials[3 * (b * C + c)].
+// is set. Stores out in the pyramid's type P at store, and in fp32 at next
+// when next is set (a bf16 pyramid: the next level's input). Writes the
+// row's moments, of the fp32 values, at partials[3 * (b * C + c)].
+template <typename P>
 __global__ void __launch_bounds__(NT) ladder_kernel(
     const float* __restrict__ in, int Tin, const float* __restrict__ fa,
     const float* __restrict__ fb, const float* __restrict__ slope,
     const float* __restrict__ w, const float* __restrict__ bias, int stride,
-    float* __restrict__ out, int Tout, int C, float* __restrict__ partials) {
+    float* __restrict__ next, P* __restrict__ store, int Tout, int C,
+    float* __restrict__ partials) {
   const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const size_t row = (size_t)b * C + c;
   const float* src = in + row * Tin;
-  float* dst = out + row * Tout;
+  P* dst = store + row * Tout;
+  float* nxt = next ? next + row * Tout : nullptr;
   const float a = fa[row], sh = fb[row];
   const bool act = slope != nullptr;
   const float sl = act ? *slope : 0.f;
@@ -558,7 +550,8 @@ __global__ void __launch_bounds__(NT) ladder_kernel(
       }
     }
     acc += bi;
-    dst[t] = acc;
+    store_level(dst + t, acc);
+    if (nxt) nxt[t] = acc;
     welford(n, mean, m2, acc);
   }
   block_moments(n, mean, m2);
@@ -569,16 +562,58 @@ __global__ void __launch_bounds__(NT) ladder_kernel(
   }
 }
 
+// Aligned loads of 8, 4 or 2 consecutive pyramid values and of one, upcast to
+// fp32: 32, 16 or 8 bytes in fp32, 16, 8 or 4 bytes in bf16.
+__device__ inline void load8(const float* s, float (&u)[8]) {
+  const float4 p = __ldg(reinterpret_cast<const float4*>(s));
+  const float4 q = __ldg(reinterpret_cast<const float4*>(s + 4));
+  u[0] = p.x; u[1] = p.y; u[2] = p.z; u[3] = p.w;
+  u[4] = q.x; u[5] = q.y; u[6] = q.z; u[7] = q.w;
+}
+__device__ inline void load4(const float* s, float (&u)[4]) {
+  const float4 p = __ldg(reinterpret_cast<const float4*>(s));
+  u[0] = p.x; u[1] = p.y; u[2] = p.z; u[3] = p.w;
+}
+__device__ inline void load2(const float* s, float (&u)[2]) {
+  const float2 p = __ldg(reinterpret_cast<const float2*>(s));
+  u[0] = p.x; u[1] = p.y;
+}
+__device__ inline float load1(const float* s) { return __ldg(s); }
+
+// the two bf16 values of a 32-bit word, upcast exactly (bf16 is the high
+// half of an fp32); the first in memory is the low half
+__device__ inline float2 bf2(uint32_t word) {
+  return make_float2(__uint_as_float(word << 16), __uint_as_float(word & 0xffff0000u));
+}
+__device__ inline void load8(const __nv_bfloat16* s, float (&u)[8]) {
+  const uint4 p = __ldg(reinterpret_cast<const uint4*>(s));
+  const float2 f0 = bf2(p.x), f1 = bf2(p.y), f2 = bf2(p.z), f3 = bf2(p.w);
+  u[0] = f0.x; u[1] = f0.y; u[2] = f1.x; u[3] = f1.y;
+  u[4] = f2.x; u[5] = f2.y; u[6] = f3.x; u[7] = f3.y;
+}
+__device__ inline void load4(const __nv_bfloat16* s, float (&u)[4]) {
+  const uint2 p = __ldg(reinterpret_cast<const uint2*>(s));
+  const float2 f0 = bf2(p.x), f1 = bf2(p.y);
+  u[0] = f0.x; u[1] = f0.y; u[2] = f1.x; u[3] = f1.y;
+}
+__device__ inline void load2(const __nv_bfloat16* s, float (&u)[2]) {
+  const float2 f = bf2(__ldg(reinterpret_cast<const unsigned int*>(s)));
+  u[0] = f.x; u[1] = f.y;
+}
+__device__ inline float load1(const __nv_bfloat16* s) {
+  return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(s)) << 16);
+}
+
 // One block per (channel, batch) row: acc[t] = sum_k (a_k raw_k[t >> k] + b_k),
 // deepest level first, in chunks of CHUNK outputs a thread. raw_k are stored
-// back to back in pyr (level k holds B * C * (T >> k) values); level k's fold
-// is folds slot k + 1. VEC: T % 8 == 0, so every chunk is whole and level 0,
-// 1, 2 and acc load and store as float4, float4, float2 and float4. Writes the
-// row's moments at partials[3 * (b * C + c)]: each chunk's exact (mean, M2),
-// merged with Chan's formula.
-template <bool VEC>
+// back to back in pyr, in type P (level k holds B * C * (T >> k) values);
+// level k's fold is folds slot k + 1. VEC: T % 8 == 0, so every chunk is
+// whole, levels 0, 1 and 2 load 8, 4 and 2 values at once and acc stores as
+// float4. Writes the row's moments at partials[3 * (b * C + c)]: each
+// chunk's exact (mean, M2), merged with Chan's formula.
+template <bool VEC, typename P>
 __global__ void __launch_bounds__(NT) upsum_kernel(
-    const float* __restrict__ pyr, const float* __restrict__ folds, int depth,
+    const P* __restrict__ pyr, const float* __restrict__ folds, int depth,
     int T, int C, int B, float* __restrict__ acc, float* __restrict__ partials) {
   extern __shared__ float sab[];  // (a_k, b_k) of this row, for k < depth
   const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
@@ -600,31 +635,31 @@ __global__ void __launch_bounds__(NT) upsum_kernel(
       const int tk = T >> k;
       off -= plane * tk;
       const float a = sab[2 * k], sh = sab[2 * k + 1];
-      const float* src = pyr + off + row * tk;
+      const P* src = pyr + off + row * tk;
       if (VEC && k == 0) {
-        const float4 p = __ldg(reinterpret_cast<const float4*>(src + t0));
-        const float4 q = __ldg(reinterpret_cast<const float4*>(src + t0 + 4));
-        const float u[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+        float u[8];
+        load8(src + t0, u);
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[j] = fmaf(a, u[j], sh) + v[j];
       } else if (VEC && k == 1) {
-        const float4 p = __ldg(reinterpret_cast<const float4*>(src + t0 / 2));
-        const float u[4] = {p.x, p.y, p.z, p.w};
+        float u[4];
+        load4(src + t0 / 2, u);
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[j] = fmaf(a, u[j / 2], sh) + v[j];
       } else if (VEC && k == 2) {
-        const float2 p = __ldg(reinterpret_cast<const float2*>(src + t0 / 4));
-        const float u0 = fmaf(a, p.x, sh), u1 = fmaf(a, p.y, sh);
+        float p[2];
+        load2(src + t0 / 4, p);
+        const float u0 = fmaf(a, p[0], sh), u1 = fmaf(a, p[1], sh);
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[j] = (j < 4 ? u0 : u1) + v[j];
       } else if (VEC) {  // one value of level k covers the whole chunk
-        const float u = fmaf(a, __ldg(src + (t0 >> k)), sh);
+        const float u = fmaf(a, load1(src + (t0 >> k)), sh);
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[j] = u + v[j];
       } else {
 #pragma unroll
         for (int j = 0; j < CHUNK; ++j)
-          if (t0 + j < T) v[j] = fmaf(a, __ldg(src + ((t0 + j) >> k)), sh) + v[j];
+          if (t0 + j < T) v[j] = fmaf(a, load1(src + ((t0 + j) >> k)), sh) + v[j];
       }
     }
     float* dst = acc + row * T + t0;
@@ -660,14 +695,17 @@ __global__ void __launch_bounds__(NT) upsum_kernel(
 
 // ---- host side -------------------------------------------------------------
 
+// Sections of the workspace, in floats: y (the proj output, then acc), ping
+// (a bf16 pyramid's second fp32 ladder plane; empty for fp32), pyr (the
+// levels, fp32 or bf16), folds, partials, W's two split planes.
 struct Layout {
-  size_t y, pyr, folds, part, sp, sr, total;
+  size_t y, ping, pyr, folds, part, sp, sr, total;
 };
 
 size_t split_floats(int M, int K) { return 2 * (size_t)round_up(M, WPAD_M) * round_up(K, BK); }
 size_t align64(size_t n) { return (n + 63) / 64 * 64; }  // 256-byte section starts
 
-Layout layout(int B, int Co, int Ci, int T, int depth) {
+Layout layout(int B, int Co, int Ci, int T, int depth, bool bf16) {
   const size_t plane = (size_t)B * Ci;
   size_t pyr = 0;
   for (int k = 0; k < depth; ++k) pyr += plane * (T >> k);
@@ -675,8 +713,9 @@ Layout layout(int B, int Co, int Ci, int T, int depth) {
   const size_t parts = 3 * (size_t)B * (tiles > (size_t)Ci ? tiles : (size_t)Ci);
   Layout L;
   L.y = 0;
-  L.pyr = align64(L.y + plane * T);
-  L.folds = align64(L.pyr + pyr);
+  L.ping = align64(L.y + plane * T);
+  L.pyr = align64(L.ping + (bf16 ? plane * T : 0));
+  L.folds = align64(L.pyr + (bf16 ? (pyr + 1) / 2 : pyr));
   L.part = align64(L.folds + 2 * (size_t)(depth + 2) * plane);
   L.sp = align64(L.part + parts);
   L.sr = align64(L.sp + split_floats(Ci, Co));
@@ -684,47 +723,77 @@ Layout layout(int B, int Co, int Ci, int T, int depth) {
   return L;
 }
 
-int num_sms() {
-  static const int n = [] {
-    int dev = 0, sms = 132;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms;
-  }();
-  return n;
-}
-
-template <int NJ, bool PRO, bool VEC>
+template <bool PRO, bool VEC>
 cudaError_t launch_gemm(cudaStream_t st, const float* S, const float* X,
                         const float* bias, const float* pa, const float* pb,
                         const float* slope, const float* R, float* out,
                         float* partials, int B, int M, int K, int N) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<NJ, PRO, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, gemm_smem(NJ));
+      gemm_kernel<PRO, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(cdiv(N, BT), cdiv(M, 64 * NJ), B);
-  gemm_kernel<NJ, PRO, VEC><<<grid, GT, gemm_smem(NJ), st>>>(
+  const dim3 grid(cdiv(N, BT), cdiv(M, BN), B);
+  gemm_kernel<PRO, VEC><<<grid, GT, GEMM_SMEM, st>>>(
       S, round_up(K, BK), X, bias, pa, pb, slope, R, out, partials, M, K, N);
   return cudaGetLastError();
 }
 
-// Picks the tile width (64 or 128 channels) and the x load width. The wider
-// tile halves W's traffic per output; the narrower one is taken when the
-// wider would leave SMs idle.
+// Picks the x load width: 16 bytes where N and the pointers allow.
 template <bool PRO>
 cudaError_t gemm(cudaStream_t st, const float* S, const float* X,
                  const float* bias, const float* pa, const float* pb,
                  const float* slope, const float* R, float* out,
                  float* partials, int B, int M, int K, int N) {
-  const bool wide = (long long)cdiv(N, BT) * cdiv(M, 128) * B >= num_sms();
   const bool vec = N % 4 == 0 && (((uintptr_t)X | (uintptr_t)R | (uintptr_t)out) & 15) == 0;
-  if (wide && vec)
-    return launch_gemm<2, PRO, true>(st, S, X, bias, pa, pb, slope, R, out, partials, B, M, K, N);
-  if (wide)
-    return launch_gemm<2, PRO, false>(st, S, X, bias, pa, pb, slope, R, out, partials, B, M, K, N);
   if (vec)
-    return launch_gemm<1, PRO, true>(st, S, X, bias, pa, pb, slope, R, out, partials, B, M, K, N);
-  return launch_gemm<1, PRO, false>(st, S, X, bias, pa, pb, slope, R, out, partials, B, M, K, N);
+    return launch_gemm<PRO, true>(st, S, X, bias, pa, pb, slope, R, out, partials, B, M, K, N);
+  return launch_gemm<PRO, false>(st, S, X, bias, pa, pb, slope, R, out, partials, B, M, K, N);
+}
+
+// The ladder (depth levels, each with its fold into folds slot k + 1) and
+// the upsample-sum into y with its moments in part, over a pyramid of type
+// P. An fp32 pyramid feeds level k + 1 from level k's stored values; a bf16
+// one from its fp32 values, which alternate between ping (even levels) and y
+// (odd levels; y is dead once level 0 has read it); the last level's are
+// not kept.
+template <typename P>
+void ladder_upsum(cudaStream_t st, float* y, float* ping, P* pyr, float* folds,
+                  float* part, const float* proj_slope, const float* dw_w,
+                  const float* dw_b, const float* dw_g, const float* dw_beta,
+                  int B, int Ci, int T, int depth, float eps) {
+  constexpr bool narrow = !std::is_same<P, float>::value;
+  const size_t plane = (size_t)B * Ci;
+  auto fa = [&](int s) { return folds + (size_t)(2 * s) * plane; };
+  auto fb = [&](int s) { return folds + (size_t)(2 * s + 1) * plane; };
+  const dim3 rows(Ci, B);
+  const float* in = y;
+  int tin = T;
+  size_t off = 0;
+  for (int k = 0; k < depth; ++k) {
+    const int s = k == 0 ? 1 : 2;
+    const int tout = tin / s;
+    P* rk = pyr + off;
+    float* next = narrow && k + 1 < depth ? (k % 2 == 0 ? ping : y) : nullptr;
+    ladder_kernel<P><<<rows, NT, 0, st>>>(
+        in, tin, fa(k), fb(k), k == 0 ? proj_slope : nullptr,
+        dw_w + (size_t)k * Ci * 5, dw_b + (size_t)k * Ci, s, next, rk, tout, Ci, part);
+    fold_kernel<<<B, NT, 0, st>>>(part, Ci, dw_g + (size_t)k * Ci,
+                                  dw_beta + (size_t)k * Ci, Ci, eps, fa(k + 1),
+                                  fb(k + 1));
+    if constexpr (narrow) {
+      in = next;
+    } else {
+      in = rk;
+    }
+    tin = tout;
+    off += plane * tout;
+  }
+
+  // y is dead after the ladder: the upsample-sum reuses it for acc
+  const size_t sab = 2 * (size_t)depth * sizeof(float);
+  if (T % CHUNK == 0)
+    upsum_kernel<true, P><<<rows, NT, sab, st>>>(pyr, folds, depth, T, Ci, B, y, part);
+  else
+    upsum_kernel<false, P><<<rows, NT, sab, st>>>(pyr, folds, depth, T, Ci, B, y, part);
 }
 
 }  // namespace
@@ -732,8 +801,8 @@ cudaError_t gemm(cudaStream_t st, const float* S, const float* X,
 extern "C" {
 
 // Floats of scratch the caller allocates for uconv_block_forward.
-long long uconv_workspace_floats(int B, int Co, int Ci, int T, int depth) {
-  return (long long)layout(B, Co, Ci, T, depth).total;
+long long uconv_workspace_floats(int B, int Co, int Ci, int T, int depth, int pyramid_bf16) {
+  return (long long)layout(B, Co, Ci, T, depth, pyramid_bf16 != 0).total;
 }
 
 const char* cuda_error_string(int err) {
@@ -742,8 +811,10 @@ const char* cuda_error_string(int err) {
 
 // One U-ConvBlock forward on `stream`. x, out: (B, Co, T); proj_w (Ci, Co);
 // dw_w (depth, Ci, 5); dw_b/dw_g/dw_beta (depth, Ci); res_w (Co, Ci); the
-// slopes are device scalars; `work` is 256-byte aligned. T % 2^(depth-1) ==
-// 0. Returns the first launch error, else cudaSuccess.
+// slopes are device scalars; `work` is 256-byte aligned and sized by
+// uconv_workspace_floats with the same pyramid_bf16 (0: fp32 pyramid, 1:
+// bf16). T % 2^(depth-1) == 0. Returns the first launch error, else
+// cudaSuccess.
 int uconv_block_forward(
     const float* x, float* out, const float* proj_w, const float* proj_b,
     const float* proj_g, const float* proj_beta, const float* proj_slope,
@@ -751,12 +822,11 @@ int uconv_block_forward(
     const float* dw_beta, const float* final_g, const float* final_beta,
     const float* final_slope, const float* res_w, const float* res_b,
     float* work, int B, int Co, int Ci, int T, int depth, float eps,
-    void* stream) {
+    int pyramid_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const Layout L = layout(B, Co, Ci, T, depth);
+  const Layout L = layout(B, Co, Ci, T, depth, pyramid_bf16 != 0);
   const size_t plane = (size_t)B * Ci;
   float* y = work + L.y;
-  float* pyr = work + L.pyr;
   float* folds = work + L.folds;
   float* part = work + L.part;
   auto fa = [&](int s) { return folds + (size_t)(2 * s) * plane; };
@@ -776,31 +846,12 @@ int uconv_block_forward(
   fold_kernel<<<B, NT, 0, st>>>(part, cdiv(Ci, SUB) * cdiv(T, SUB), proj_g,
                                 proj_beta, Ci, eps, fa(0), fb(0));
 
-  const dim3 rows(Ci, B);
-  const float* in = y;
-  int tin = T;
-  size_t off = 0;
-  for (int k = 0; k < depth; ++k) {
-    const int s = k == 0 ? 1 : 2;
-    const int tout = tin / s;
-    float* rk = pyr + off;
-    ladder_kernel<<<rows, NT, 0, st>>>(
-        in, tin, fa(k), fb(k), k == 0 ? proj_slope : nullptr,
-        dw_w + (size_t)k * Ci * 5, dw_b + (size_t)k * Ci, s, rk, tout, Ci, part);
-    fold_kernel<<<B, NT, 0, st>>>(part, Ci, dw_g + (size_t)k * Ci,
-                                  dw_beta + (size_t)k * Ci, Ci, eps, fa(k + 1),
-                                  fb(k + 1));
-    in = rk;
-    tin = tout;
-    off += plane * tout;
-  }
-
-  // y is dead after level 0: the upsample-sum reuses it for acc
-  const size_t sab = 2 * (size_t)depth * sizeof(float);
-  if (T % CHUNK == 0)
-    upsum_kernel<true><<<rows, NT, sab, st>>>(pyr, folds, depth, T, Ci, B, y, part);
+  if (pyramid_bf16)
+    ladder_upsum(st, y, work + L.ping, reinterpret_cast<__nv_bfloat16*>(work + L.pyr), folds,
+                 part, proj_slope, dw_w, dw_b, dw_g, dw_beta, B, Ci, T, depth, eps);
   else
-    upsum_kernel<false><<<rows, NT, sab, st>>>(pyr, folds, depth, T, Ci, B, y, part);
+    ladder_upsum(st, y, work + L.ping, work + L.pyr, folds, part, proj_slope, dw_w, dw_b,
+                 dw_g, dw_beta, B, Ci, T, depth, eps);
   fold_kernel<<<B, NT, 0, st>>>(part, Ci, final_g, final_beta, Ci, eps,
                                 fa(depth + 1), fb(depth + 1));
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

@@ -21,6 +21,13 @@ with e^T P_S e = D^T G^{-1} D, G the (n L x n L) block-Toeplitz Gram of all
 delayed sources; the correlations come from zero-padded FFTs. The
 permutation is the best mean SIR over all n! permutations, scored by a
 one-hot einsum in the JAX package's layout.
+
+Departure from the JAX package: JAX scores permutation p as estimate e ->
+target p[e] and then reports target j against estimate p[j], which is the
+scored assignment only where p is its own inverse (always for two sources;
+for three or more, a cyclic order of near-perfect estimates reads ~-30 dB).
+The port reports target j against the estimate the scored permutation gave
+it, p^-1[j]. For two sources the two agree.
 """
 
 from __future__ import annotations
@@ -126,7 +133,10 @@ def bss_eval_sources(
     perms = np.array(list(itertools.permutations(range(n))))
     onehot = torch.from_numpy(np.stack([np.eye(n)[p] for p in perms]).astype(np.float32))
     sir_scores = torch.einsum("bej,pej->bp", sir_pair, onehot.to(sir_pair.device)) / n
-    assign = torch.from_numpy(perms).to(est.device)[sir_scores.argmax(dim=-1)]  # (B, n)
+    # the best permutation sends estimate e to target best[e]; target j's
+    # estimate is its inverse, assign[j]
+    best = torch.from_numpy(perms).to(est.device)[sir_scores.argmax(dim=-1)]  # (B, n)
+    assign = torch.argsort(best, dim=-1)
 
     pick = lambda pair: torch.gather(pair, 1, assign[:, None, :])[:, 0]
     sar = torch.gather(sar_each, 1, assign)

@@ -158,8 +158,13 @@ def _tac_fast(tac, x, matmuls=None):
 
     matmuls: optional (mm_in, mm_mean, mm_out) channel-matmul hooks, each
     ``mm(w (O, C), v (B', C, T))``.
+
+    Runs in x's dtype (bf16 with fp32 GlobLN statistics, or fp32); weights
+    and biases in another dtype are cast to it, as JAX promotes a narrower
+    weight (a 'kernel' serving copy holds bf16-rounded weights in fp32).
     """
     b, g, n, t = x.shape
+    dt = x.dtype
     mm_in, mm_mean, mm_out = matmuls if matmuls is not None else (torch.matmul,) * 3
 
     def prelu(act, v):
@@ -168,16 +173,17 @@ def _tac_fast(tac, x, matmuls=None):
     lin_in, act_in = tac.TAC_input
     lin_mean, act_mean = tac.TAC_mean
     lin_out, act_out = tac.TAC_output
-    y = mm_in(lin_in.weight, x.reshape(b * g, n, t))
+    y = mm_in(lin_in.weight.to(dt), x.reshape(b * g, n, t))
     h = y.shape[1]
-    y = prelu(act_in, y.reshape(b, g, h, t) + lin_in.bias[None, None, :, None])
+    y = prelu(act_in, y.reshape(b, g, h, t) + lin_in.bias.to(dt)[None, None, :, None])
     mean = y.mean(dim=1)
-    mean = prelu(act_mean, mm_mean(lin_mean.weight, mean) + lin_mean.bias[None, :, None])
-    w_out = lin_out.weight  # (N, 2H)
+    mean = prelu(act_mean, mm_mean(lin_mean.weight.to(dt), mean)
+                 + lin_mean.bias.to(dt)[None, :, None])
+    w_out = lin_out.weight.to(dt)  # (N, 2H)
     out = (
         mm_out(w_out[:, :h], y.reshape(b * g, h, t)).reshape(b, g, n, t)
         + torch.matmul(w_out[:, h:], mean)[:, None]
-        + lin_out.bias[None, None, :, None]
+        + lin_out.bias.to(dt)[None, None, :, None]
     )
     out = prelu(act_out, out)
     out = ops.glob_ln(out.reshape(b * g, n, t), tac.TAC_norm.gamma, tac.TAC_norm.beta)

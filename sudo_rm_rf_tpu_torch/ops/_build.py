@@ -71,11 +71,11 @@ def load_kernels() -> ctypes.CDLL:
     """Build if needed, load, and declare the C entry points."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.uconv_workspace_floats.argtypes = [i32] * 5
+    lib.uconv_workspace_floats.argtypes = [i32] * 6
     lib.uconv_workspace_floats.restype = ctypes.c_longlong
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p
     lib.uconv_block_forward.argtypes = (
-        [ptr] * 17 + [i32] * 5 + [ctypes.c_float, ptr])
+        [ptr] * 17 + [i32] * 5 + [ctypes.c_float, i32, ptr])
     lib.uconv_block_forward.restype = i32
     return lib

@@ -3,15 +3,20 @@
 Four forms of one function, all with the JAX package's parameter dict (``kp``,
 see :func:`uconv_block_reference`) and (B, C, T) layout:
 
-* :func:`uconv_block_reference` — plain ops, the oracle;
+* :func:`uconv_block_reference` — plain ops, the oracle; in the dtype of its
+  inputs (fp32, or bf16 with fp32 GlobLN statistics);
 * :func:`uconv_block_fma` — shifted multiply-adds with each GlobLN folded into
-  per-channel (a, b) constants, autograd-able;
+  per-channel (a, b) constants, autograd-able; fp32 or bf16 (fp32
+  statistics), with an optional ``matmul`` hook for the two 1x1 products
+  (the int8 serving path's);
 * :func:`uconv_block_levelwise` — the exact decomposition the CUDA kernel
   carries out (3xTF32 GEMMs, per-tile statistics merged with Chan's formula,
   level-wise folding, the closed-form upsample-sum with per-chunk
   statistics), in plain torch, so the CPU tests check the kernel's algorithm;
+  fp32 in and out, with an fp32 or bf16 pyramid;
 * :func:`fused_uconv_block` — the wrapper of the hand-written Hopper kernel
-  ``csrc/uconv.cu`` (forward only).
+  ``csrc/uconv.cu``: forward only, fp32 in and out, with an fp32 or bf16
+  pyramid (the TPU kernel's ``pyramid_dtype``).
 """
 
 from __future__ import annotations
@@ -97,13 +102,23 @@ def dw_conv_s2(v, w):
     )
 
 
-def uconv_block_fma(x, params, depth: int):
+def uconv_block_fma(x, params, depth: int, matmul=None):
     """Plain block with the kernel's algebraic optimizations: depthwise convs
     as 5 shifted multiply-adds (stride 2 phase-split into even and odd
     planes), and each ladder GlobLN folded into the next conv's input as
-    per-channel (a, b), with one-pass sum / sum-of-squares statistics."""
-    ci = params["proj_w"].shape[0]
-    y = torch.matmul(params["proj_w"], x) + params["proj_b"][None, :, None]
+    per-channel (a, b), with one-pass sum / sum-of-squares statistics.
+
+    matmul: optional ``fn(w (O, C), v (B, C, T)) -> (B, O, T)`` for the proj
+    and res products (the int8 serving path's hook, ``models/quantized.py``).
+    With it, ``params['proj_w']`` and ``params['res_w']`` may be whatever
+    the hook takes (an int8 ``{'q', 's'}`` dict): they are passed through.
+    """
+    if matmul is None:
+        matmul = torch.matmul
+    proj_w = params["proj_w"]
+    # proj_w's rows are the expanded Ci channels in both forms
+    ci = proj_w["q"].shape[0] if isinstance(proj_w, dict) else proj_w.shape[0]
+    y = matmul(proj_w, x) + params["proj_b"][None, :, None]
     y = glob_ln(y, params["proj_g"], params["proj_beta"])
     y = _prelu(y, params["proj_slope"])
 
@@ -139,7 +154,7 @@ def uconv_block_fma(x, params, depth: int):
 
     acc = glob_ln(acc, params["final_g"], params["final_beta"])
     acc = _prelu(acc, params["final_slope"])
-    out = torch.matmul(params["res_w"], acc) + params["res_b"][None, :, None]
+    out = matmul(params["res_w"], acc) + params["res_b"][None, :, None]
     return out + x
 
 
@@ -188,7 +203,7 @@ def _fold(v, gamma, beta, rows: int, cols: int):
     return (a[:, :, None], (beta[None, :] - a * mu)[:, :, None])
 
 
-def uconv_block_levelwise(x, params, depth: int):
+def uconv_block_levelwise(x, params, depth: int, pyramid_dtype=torch.float32):
     """The CUDA kernel's decomposition of the block, in plain torch.
 
     proj GEMM in 3xTF32 (partials per ``GEMM_TILE`` sub-tile) -> per level
@@ -197,6 +212,11 @@ def uconv_block_levelwise(x, params, depth: int):
     per-row partials -> acc = sum_k (a_k raw_k[t >> k] + b_k) with partials
     per ``UPSUM_CHUNK`` outputs -> res GEMM in 3xTF32 over prelu(a_f*acc +
     b_f) plus bias and residual.
+
+    pyramid_dtype: the type the levels are stored in (the TPU kernel's
+    argument of that name). With bf16, as there, each level's statistics
+    and the next level's input are its fp32 values; only the upsample-sum
+    reads the stored levels, rounded to bf16 (nearest even) and upcast.
     """
     t = x.shape[-1]
     y = matmul_3xtf32(params["proj_w"], x) + params["proj_b"][None, :, None]
@@ -216,7 +236,7 @@ def uconv_block_levelwise(x, params, depth: int):
         raw.append(o)
         folds.append((a, b))
     acc = sum(
-        (fa * r + fb).repeat_interleave(2**k, dim=-1)[..., :t]
+        (fa * r.to(pyramid_dtype).float() + fb).repeat_interleave(2**k, dim=-1)[..., :t]
         for k, (r, (fa, fb)) in enumerate(zip(raw, folds))
     )
     a, b = _fold(acc, params["final_g"], params["final_beta"], 1, UPSUM_CHUNK)
@@ -224,20 +244,33 @@ def uconv_block_levelwise(x, params, depth: int):
     return out + params["res_b"][None, :, None] + x
 
 
+PYRAMID_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def fused_uconv_block(x, params, depth: int = 5, pyramid_dtype=torch.float32):
-    """Run the U-ConvBlock. x: (B, Co, T) fp32; returns (B, Co, T).
+    """Run the U-ConvBlock. x: (B, Co, T) fp32; params fp32; returns (B, Co,
+    T) fp32.
+
+    pyramid_dtype: ``torch.float32`` (the default, as the TPU kernel's) or
+    ``torch.bfloat16``, the type the ladder's levels are stored in for the
+    upsample-sum (see :func:`uconv_block_levelwise`); anything else raises.
 
     On a CUDA tensor this launches the Hopper kernel (``csrc/uconv.cu``) or
-    raises; on a CPU tensor it runs the plain :func:`uconv_block_reference`.
-    T must be divisible by 2**(depth-1). Forward only: on a CUDA tensor it
-    raises where autograd would need a gradient.
+    raises; on a CPU tensor it runs the plain version of the same function:
+    :func:`uconv_block_reference` for an fp32 pyramid,
+    :func:`uconv_block_levelwise` for a bf16 one. T must be divisible by
+    2**(depth-1). Forward only: on a CUDA tensor it raises where autograd
+    would need a gradient.
     """
+    if pyramid_dtype not in PYRAMID_DTYPES:
+        raise ValueError(f"fused_uconv_block: pyramid_dtype {pyramid_dtype} not in "
+                         f"{PYRAMID_DTYPES}")
     if x.device.type == "cpu":
-        return uconv_block_reference(x, params, depth)
+        if pyramid_dtype == torch.float32:
+            return uconv_block_reference(x, params, depth)
+        return uconv_block_levelwise(x, params, depth, pyramid_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"fused_uconv_block: unsupported device {x.device}")
-    if pyramid_dtype != torch.float32:
-        raise NotImplementedError("fused_uconv_block: only a float32 pyramid")
     if x.dtype != torch.float32 or x.ndim != 3 or not x.is_contiguous():
         raise ValueError(
             f"fused_uconv_block: x must be a contiguous 3-D float32 tensor, "
@@ -271,23 +304,28 @@ def fused_uconv_block(x, params, depth: int = 5, pyramid_dtype=torch.float32):
     lib = load_kernels()
     with torch.cuda.device(x.device):
         out = torch.empty_like(x)
-        ws = lib.uconv_workspace_floats(b, co, ci, t, depth)
+        bf16 = int(pyramid_dtype == torch.bfloat16)
+        ws = lib.uconv_workspace_floats(b, co, ci, t, depth, bf16)
         work = torch.empty(ws, dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ptr = lambda v: ctypes.c_void_p(v.data_ptr())
         err = lib.uconv_block_forward(
             ptr(x), ptr(out), *(ptr(params[key]) for key in want),
-            ptr(work), b, co, ci, t, depth, ctypes.c_float(EPS),
+            ptr(work), b, co, ci, t, depth, ctypes.c_float(EPS), bf16,
             ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"fused_uconv_block: CUDA launch failed: "
                            f"{lib.cuda_error_string(err).decode()} ({err})")
     fused_uconv_block.launches += 1
+    if bf16:
+        fused_uconv_block.launches_bf16_pyramid += 1
     return out
 
 
+# launches of the kernel, all of them and those with a bf16 pyramid
 fused_uconv_block.launches = 0
+fused_uconv_block.launches_bf16_pyramid = 0
 
 
 def params_from_module(block) -> dict:

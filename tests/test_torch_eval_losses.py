@@ -234,19 +234,53 @@ def test_bss_eval_finite_on_perfect_separation():
     assert (got["sir"] > 40).all() and got["perm"].tolist() == [[1, 0], [1, 0]]
 
 
+def _bss_oracle(est, tgt):
+    """Per-target brute force of BSS-eval at one tap, in float64 numpy: for
+    every assignment of targets to estimates (target j -> estimate q[j]),
+    each pair's SDR, SIR and SAR from its explicit projections; the
+    assignment of best mean SIR wins. Returns ((n,) sdr, sir, sar, q)."""
+    est, tgt = est.astype(np.float64), tgt.astype(np.float64)
+    n = tgt.shape[0]
+    coef = np.linalg.lstsq(tgt.T, est.T, rcond=None)[0]  # P_S e = coef^T S
+    p_s = (tgt.T @ coef).T  # (n_est, T)
+
+    def metrics(e, j):
+        s_t = (est[e] @ tgt[j]) / (tgt[j] @ tgt[j]) * tgt[j]
+        e_interf, e_artif = p_s[e] - s_t, est[e] - p_s[e]
+        db = lambda a, b: 10 * np.log10((a @ a) / (b @ b))
+        return db(s_t, e_interf + e_artif), db(s_t, e_interf), db(s_t + e_interf, e_artif)
+
+    best = max(itertools.permutations(range(n)),
+               key=lambda q: np.mean([metrics(q[j], j)[1] for j in range(n)]))
+    rows = np.array([metrics(best[j], j) for j in range(n)])
+    return rows[:, 0], rows[:, 1], rows[:, 2], list(best)
+
+
 def test_bss_eval_three_sources_matches_jax_and_its_cyclic_assignment():
     """With three or more sources the JAX package scores permutation p as
-    estimate e -> target p[e] but reports target j against estimate p[j]:
-    for a cyclic order of near-perfect estimates it reports ~-30 dB. The
-    port mirrors it (ROADMAP queue 3); this test shows the fault."""
+    estimate e -> target p[e] but reports target j against estimate p[j]
+    (for a cyclic order of good estimates, far below 0 dB). The port
+    reports the scored assignment: it matches a per-target brute-force
+    oracle (within 2e-3 dB, fp32 against float64), where the JAX package
+    does not; with two sources it matches JAX
+    (``test_bss_eval_improvement_matches_jax``)."""
     rng = np.random.default_rng(1)
-    tgt = rng.standard_normal((1, 3, 1000)).astype(np.float32)
-    est = tgt[:, [1, 2, 0]] + 0.1 * rng.standard_normal((1, 3, 1000)).astype(np.float32)
-    want = jbss.bss_eval_sources(jnp.asarray(est), jnp.asarray(tgt))
+    tgt = rng.standard_normal((2, 3, 1000)).astype(np.float32)
+    # each estimate: one target, leakage of another (SIR ~20 dB, where fp32
+    # still resolves the interference energy) and noise
+    est = np.stack([tgt[0, [1, 2, 0]] + 0.1 * tgt[0, [2, 0, 1]],
+                    tgt[1, [2, 0, 1]] + 0.1 * tgt[1, [0, 1, 2]]])
+    est = est + 0.1 * rng.standard_normal(est.shape).astype(np.float32)
     got = tbss.bss_eval_sources(torch.from_numpy(est), torch.from_numpy(tgt))
-    np.testing.assert_array_equal(got["perm"].numpy(), np.asarray(want["perm"]))
-    for k in ("sdr", "sir", "sar"):
-        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=0, atol=2e-3)
-    # target j is estimate (j - 1) % 3; the reported assignment is the inverse
-    assert got["perm"].tolist() == [[1, 2, 0]]
-    assert (got["sdr"] < -20).all()
+    want = jbss.bss_eval_sources(jnp.asarray(est), jnp.asarray(tgt))
+    for i in range(2):
+        sdr, sir, sar, perm = _bss_oracle(est[i], tgt[i])
+        assert got["perm"][i].tolist() == perm
+        for k, w in (("sdr", sdr), ("sir", sir), ("sar", sar)):
+            np.testing.assert_allclose(got[k][i].numpy(), w, rtol=0, atol=2e-3, err_msg=k)
+        assert (got["sdr"][i] > 10).all()
+        # JAX reports each target against another target's estimate
+        assert np.asarray(want["perm"][i]).tolist() != perm
+        assert (np.asarray(want["sdr"][i]) < -10).all()
+    # target j holds estimate (j - 1) % 3, then (j + 1) % 3
+    assert got["perm"].tolist() == [[2, 0, 1], [1, 2, 0]]

@@ -113,9 +113,35 @@ FUSS = ["--dataset", "FUSS", "-fs", "16000", "--num_sources", "4",
         "--mixture_consistency", "uniform"]
 
 
-def test_evaluate_fuss_four_source_examples_match_jax(tmp_path, capsys, fuss_root):
-    """The examples of four sources of a FUSS eval split."""
+def _jax_bss_eval_reporting_the_scored_assignment(est, targets, mixture, eps=1e-10,
+                                                 filter_taps=1):
+    """The JAX package's ``bss_eval_improvement``, reporting each target
+    against the estimate its best permutation scored it with (the port's
+    repair, ``losses/bss_eval.py``): the estimates are first put in that
+    order, where the best permutation is the identity, which JAX reports
+    right."""
+    import jax.numpy as jnp
+
+    from sudo_rm_rf_tpu.losses import bss_eval as jbss
+
+    perm = jbss.bss_eval_sources(est, targets, eps, filter_taps=filter_taps)["perm"]
+    order = jnp.argsort(perm, axis=-1)
+    est = jnp.take_along_axis(jnp.asarray(est), order[..., None], axis=1)
+    return jbss.bss_eval_improvement(est, targets, mixture, eps, filter_taps=filter_taps)
+
+
+def test_evaluate_fuss_four_source_examples_match_jax(tmp_path, capsys, fuss_root,
+                                                      monkeypatch):
+    """The examples of four sources of a FUSS eval split. With four sources
+    the port's BSS-eval reports the scored assignment where the JAX
+    package's does not (ROADMAP queue 3), so the JAX CLI runs with its own
+    BSS-eval put in the same order."""
     import shutil
+
+    import sudo_rm_rf_tpu.losses
+
+    monkeypatch.setattr(sudo_rm_rf_tpu.losses, "bss_eval_improvement",
+                        _jax_bss_eval_reporting_the_scored_assignment)
 
     root = tmp_path / "fuss4"
     shutil.copytree(fuss_root, root)
@@ -127,19 +153,55 @@ def test_evaluate_fuss_four_source_examples_match_jax(tmp_path, capsys, fuss_roo
 
 
 def test_evaluate_fuss_scores_padded_rows_as_the_jax_cli_does(tmp_path, capsys, fuss_root):
-    """An example of fewer than --num_sources sources keeps zero rows as
-    targets: a zero target's SI-SDR is -inf, which the one-hot permutation
-    einsum turns into NaN (-inf x 0), in both CLIs, so the means are NaN
-    (ROADMAP queue 3; training scores FUSS per source count instead)."""
+    """An example of fewer than --num_sources sources keeps zero rows in its
+    target stack. The JAX CLI scores them (a zero target's SI-SDR is -inf,
+    which its one-hot permutation einsum turns into NaN), so its means are
+    NaN. The port departs from it: each example is scored over its active
+    sources only, as training's per-source-count validation does, so every
+    mean is finite; one-source examples add no SI-SDRi or SDRi."""
+    import pickle
+
     from sudo_rm_rf_tpu.cli.evaluate import main as jax_main
     from sudo_rm_rf_tpu_torch.cli.evaluate import main
 
     argv = _argv(_checkpoint(tmp_path, "relu", 4), "relu", fuss_root,
                  FUSS + ["--bss_filter_taps", "1"])
     want = _run(jax_main, argv, capsys)
-    got = _run(main, argv + ["--device", "cpu"], capsys)
+    out = tmp_path / "fuss.pkl"
+    got = _run(main, argv + ["--device", "cpu", "--out_pickle", str(out)], capsys)
     assert got["n_examples"] == want["n_examples"] == 8
-    assert np.isnan(got["si_sdr_mean"]) and np.isnan(want["si_sdr_mean"])
+    assert np.isnan(want["si_sdr_mean"])
+    assert all(np.isfinite(v) for k, v in got.items() if k.endswith(("_mean", "_median")))
+    # each line of the list: the mixture, then the example's sources
+    counts = [len(line.split()) - 1 for line in
+              open(os.path.join(fuss_root, "eval_example_list.txt")).read().strip().split("\n")]
+    assert min(counts) == 1 and max(counts) == 4
+    res = pickle.load(open(out, "rb"))
+    multi = sum(c > 1 for c in counts)
+    assert [len(res[k]) for k in ("si_sdr", "sdr", "sir", "sar")] == [8] * 4
+    assert len(res["si_sdri"]) == len(res["sdri"]) == multi
+
+
+def test_fuss_scores_take_the_active_sources():
+    """``fuss_scores`` on estimates that hold each example's sources in
+    shuffled slots: every example separates perfectly, whatever its count."""
+    from sudo_rm_rf_tpu_torch.cli.evaluate import fuss_scores
+
+    rng = np.random.default_rng(5)
+    t = 800
+    tgt = np.zeros((4, 4, t), np.float32)
+    est = 1e-3 * rng.standard_normal((4, 4, t)).astype(np.float32)
+    for i, n in enumerate((1, 2, 3, 4)):
+        src = np.cumsum(rng.standard_normal((n, t)), axis=-1).astype(np.float32)
+        tgt[i, :n] = src
+        slots = [0] if n == 1 else rng.permutation(4)[:n]
+        est[i, slots] += src
+    tt, et = torch.from_numpy(tgt), torch.from_numpy(est)
+    got = fuss_scores(et, tt, tt.sum(1, keepdim=True), taps=1)
+    assert len(got["si_sdr"]) == len(got["sdr"]) == 4
+    assert len(got["si_sdri"]) == len(got["sdri"]) == 3
+    assert min(got["si_sdr"]) > 30 and min(got["sdr"]) > 30
+    assert all(np.isfinite(v).all() for v in got.values())
 
 
 def test_evaluate_writes_the_per_example_pickle(tmp_path, capsys, whamr_root):

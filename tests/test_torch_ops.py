@@ -100,9 +100,10 @@ def test_overlap_and_add(step):
 def test_port_imports_no_jax_and_never_falls_back(tmp_path):
     """In a fresh interpreter, the whole port imports, runs a toy Improved
     and GroupComm forward in every form, separates a tiny wav through
-    ``sudo-torch-separate`` with each model type and trains one epoch
-    through ``sudo-torch-train`` on the CPU without importing JAX or any
-    module of the JAX package; asking for CUDA where there is none raises."""
+    ``sudo-torch-separate`` with each model type, trains one epoch through
+    ``sudo-torch-train``, serves in bf16 and int8 and runs ``sudo-torch-bench``
+    and the headline bench on the CPU without importing JAX or any module of
+    the JAX package; asking for CUDA where there is none raises."""
     code = textwrap.dedent("""
         import os, sys
         import numpy as np
@@ -159,6 +160,22 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
                       "--out_channels", "8", "--in_channels", "16",
                       "--upsampling_depth", "2", "--enc_num_basis", "8"]
         assert train_cli.main(train_argv + ["--device", "cpu"]) == 0
+        # reduced precision, int8, the bench CLI and the headline at toy widths
+        import sudo_rm_rf_tpu_torch.bench as headline
+        from sudo_rm_rf_tpu_torch.cli import bench as bench_cli
+        from sudo_rm_rf_tpu_torch.models import quantized
+        from sudo_rm_rf_tpu_torch.utils import benchmark
+        for cdt in (None, "bfloat16"):
+            assert improved_forward_fast(m, x, compute_dtype=cdt).dtype == torch.float32
+            assert groupcomm_forward_fast(gc, x, compute_dtype=cdt).dtype == torch.float32
+        qp = quantized.quantize_improved_params(m)
+        assert quantized.improved_forward_int8(
+            qp, torch.randn(2, 1, 400), upsampling_depth=2).shape == (2, 2, 400)
+        benchmark.reference_model_zoo = lambda: {"toy": lambda: models.get_model("relu", **hp)}
+        bench_argv = ["--models", "toy", "--batch_sizes", "2", "--timelength", "0.05"]
+        assert bench_cli.main(bench_argv + ["--device", "cpu"]) == 0
+        assert headline.main(["--device", "cpu"], hp=dict(hp, num_sources=2),
+                             seconds=0.1, reps=1) == 0
         foreign = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "sudo_rm_rf_tpu"))
         assert not foreign, foreign
         if not torch.cuda.is_available():
@@ -167,6 +184,8 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
                 lambda: separate.main(["--checkpoint", "absent.pt", "--input",
                                        "absent.wav", "--device", "cuda"]),
                 lambda: train_cli.main(train_argv),  # --device defaults to cuda
+                lambda: bench_cli.main(bench_argv),
+                lambda: headline.main([]),
             ):
                 try:
                     call()

@@ -99,3 +99,27 @@ def test_separate_cli_matches_jax_cli(tmp_path):
         _, got = wavfile.read(os.path.join(tmp_path, "port", f"mix_s{s}.wav"))
         assert got.shape == want.shape == (10400,) and got.dtype == np.int16
         assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+
+
+def test_separate_cli_takes_the_jax_mode_flag(tmp_path, monkeypatch):
+    """A JAX argv with ``--mode overlap_add`` runs and writes the same files
+    as without it; ``--mode seq_parallel`` raises, naming its ROADMAP item."""
+    model = models.get_model("relu", **HP, generator=torch.Generator().manual_seed(3))
+    ckpt = str(tmp_path / "model.pt")
+    torch.save(model.state_dict(), ckpt)
+    wav = str(tmp_path / "mix.wav")
+    wavfile.write(wav, 8000, (_mixture(4000, 2) * 32767).astype(np.int16))
+    common = ["--checkpoint", ckpt, "--model_type", "relu", "--input", wav,
+              "--chunk_seconds", "0.4", "--batch_chunks", "2", "--device", "cpu"]
+    for key in ("out_channels", "in_channels", "num_blocks", "upsampling_depth",
+                "enc_kernel_size", "enc_num_basis"):
+        common += [f"--{key}", str(HP[key])]
+    assert separate_main(common + ["--out_dir", str(tmp_path / "a"),
+                                   "--mode", "overlap_add"]) == 0
+    assert separate_main(common + ["--out_dir", str(tmp_path / "b")]) == 0
+    for s in (1, 2):
+        _, a = wavfile.read(os.path.join(tmp_path, "a", f"mix_s{s}.wav"))
+        _, b = wavfile.read(os.path.join(tmp_path, "b", f"mix_s{s}.wav"))
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        separate_main(common + ["--out_dir", str(tmp_path / "c"), "--mode", "seq_parallel"])

@@ -159,3 +159,78 @@ def test_tf32_round_is_round_to_nearest_ties_away():
     torch.testing.assert_close(U.matmul_3xtf32(w, a), want, rtol=1e-5, atol=1e-5)
     one_pass = (U.tf32_round(w) @ U.tf32_round(a) - want).abs().max()
     assert (U.matmul_3xtf32(w, a) - want).abs().max() < one_pass / 100
+
+
+# (depth, T, Ci, Co) of the bf16-pyramid checks: the measured block, a
+# ragged one of the JAX kernel tests, and one with T % 8 != 0, whose
+# upsample-sum takes the kernel's scalar load path
+PYRAMID_SHAPES = [(5, 640, 64, 32), (4, 648, 36, 20), (3, 644, 36, 20)]
+PYRAMID_MIN_DB = 80.0
+PYRAMID_MAX_ABS = 2e-3
+
+
+def _delta_db(ref, est):
+    return float(10 * np.log10((ref.astype(np.float64) ** 2).sum()
+                               / ((ref.astype(np.float64) - est) ** 2).sum()))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bf16_pyramid(depth, t, ci, co):
+    params, x = _inputs(depth, t, ci, co)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    return np.asarray(J.fused_uconv_block(jnp.asarray(x), jp, depth=depth,
+                                          pyramid_dtype=jnp.bfloat16, interpret=True))
+
+
+@pytest.mark.parametrize("depth,t,ci,co", PYRAMID_SHAPES)
+def test_bf16_pyramid_matches_jax_kernel(depth, t, ci, co):
+    """The plain bf16-pyramid block (levels fed and normalized in fp32,
+    stored in bf16 for the upsample-sum) against the JAX kernel with
+    ``pyramid_dtype=bfloat16`` in interpret mode: >= 80 dB on the block's
+    change (out - x), max |delta| <= 2e-3 (only bf16 rounding flips of
+    values the two compute in another order differ). The fp32 pyramid reads
+    < 80 dB against the same JAX output: the narrowing happens."""
+    params, x = _inputs(depth, t, ci, co)
+    tp = {k: torch.from_numpy(np.asarray(v)) for k, v in params.items()}
+    want = _jax_bf16_pyramid(depth, t, ci, co) - x
+    for got in (U.uconv_block_levelwise(torch.from_numpy(x), tp, depth, torch.bfloat16),
+                U.fused_uconv_block(torch.from_numpy(x), tp, depth, torch.bfloat16)):
+        got = got.numpy() - x
+        assert _delta_db(want, got) >= PYRAMID_MIN_DB
+        assert np.abs(got - want).max() <= PYRAMID_MAX_ABS
+    fp32 = U.uconv_block_levelwise(torch.from_numpy(x), tp, depth).numpy() - x
+    assert _delta_db(want, fp32) < PYRAMID_MIN_DB
+
+
+def test_fused_uconv_block_on_cpu_takes_the_pyramid_dtype():
+    """On the CPU a bf16 pyramid runs the plain bf16-pyramid block, not the
+    fp32 reference; a pyramid type the kernel lacks raises."""
+    params, x = _inputs(4, 512, 64, 32)
+    tp = {k: torch.from_numpy(np.asarray(v)) for k, v in params.items()}
+    xt = torch.from_numpy(x)
+    got = U.fused_uconv_block(xt, tp, 4, pyramid_dtype=torch.bfloat16)
+    assert U.fused_uconv_block.launches == 0
+    torch.testing.assert_close(got, U.uconv_block_levelwise(xt, tp, 4, torch.bfloat16),
+                               rtol=0, atol=0)
+    assert not torch.equal(got, U.fused_uconv_block(xt, tp, 4))
+    with pytest.raises(ValueError, match="pyramid_dtype"):
+        U.fused_uconv_block(xt, tp, 4, pyramid_dtype=torch.float16)
+
+
+def test_fma_block_matmul_hook_routes_both_products():
+    """``uconv_block_fma``'s ``matmul`` hook takes the proj and res products
+    (JAX's hook, which the int8 path uses) and passes the weights through."""
+    params, x = _inputs(4, 512, 64, 32)
+    tp = {k: torch.from_numpy(np.asarray(v)) for k, v in params.items()}
+    seen = []
+
+    def mm(w, v):
+        seen.append(tuple(w["w"].shape))
+        return torch.matmul(w["w"], v)
+
+    wrapped = dict(tp, proj_w={"q": tp["proj_w"], "w": tp["proj_w"]},
+                   res_w={"q": tp["res_w"], "w": tp["res_w"]})
+    got = U.uconv_block_fma(torch.from_numpy(x), wrapped, 4, matmul=mm)
+    assert seen == [(64, 32), (32, 64)]
+    torch.testing.assert_close(got, U.uconv_block_fma(torch.from_numpy(x), tp, 4),
+                               rtol=0, atol=0)
