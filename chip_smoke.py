@@ -11,11 +11,12 @@
 3. The U-ConvBlock kernel (K1) against its plain version at the flagship
    block shape (Co=256, Ci=512, T=3200, depth 5; B=1, 4, 8), at two ragged
    ones, at the GroupComm folded shape (B*G=64, Co=16, Ci=32, T=3200,
-   depth 5) and at the U36 WHAMR! 16 kHz block (Co=Ci=512, T=6400, depth 5;
-   B=1, 4), within rtol=atol=1e-4; two calls on one input must be
-   bit-identical. At the flagship and U36 shapes, time the kernel,
-   ``uconv_block_fma`` and ``uconv_block_reference`` (CUDA events, median of
-   25 after warm-up). At B=4 of both and at the GroupComm shape, also: the
+   depth 5), at the U36 WHAMR! 16 kHz block (Co=Ci=512, T=6400, depth 5;
+   B=1, 4) and at the U8/256 block of the convergence check's validation
+   (B=4, Co=128, Ci=256, T=1600, depth 5), within rtol=atol=1e-4; two calls
+   on one input must be bit-identical. At the flagship and U36 shapes, time
+   the kernel, ``uconv_block_fma`` and ``uconv_block_reference`` (CUDA
+   events, median of 25 after warm-up). At B=4 of both and at the GroupComm shape, also: the
    device time of each of K1's parts (``torch.profiler``), K1's bound, and
    the ``torch.matmul`` time of the
    same two products (TF32 off, and labelled, on), a yardstick the port
@@ -88,9 +89,20 @@
 12. ``sudo-torch-bench`` at the zoo's U16/512, GroupComm and U36 rows (bs1
    and bs4, fp32 and bf16) and one backward row, K1 counted; then
    ``python -m sudo_rm_rf_tpu_torch.bench``, its line and gates.
-13. Print JSON lines of the serving, training, evaluation, recipe,
-   reduced-precision and bench results, each phase's seconds, and one line
-   of kernel results (K1 with an fp32 and with a bf16 pyramid), then
+13. The AUGMENTED loop at the widths of
+   ``docs/runs/improved_u16_synth/hparams.json`` (U16/512, out 256, bs8, 4 s
+   at 8 kHz, the xla blocks in bf16): a hierarchical corpus (cut to 12 x 8
+   train and 4 x 6 val and test utterances; 64 / 16 / 16 mixtures), two
+   ``sudo-torch-train --train AUGMENTED_WSJMIX`` epochs saving msgpack
+   TrainStates and a third resumed from them (step and Adam step checked),
+   ``sudo-torch-evaluate --dataset AUGMENTED`` of the best checkpoint (16 K1
+   launches a batch) beside the ``xla`` blocks' SI-SDRi (<= 0.01 dB apart),
+   ``sudo-torch-export`` to a ``.pt``, and ``sudo-torch-separate`` of two
+   files from the ``.pt`` and from the msgpack: identical int16 outputs.
+14. Print JSON lines of the serving, training, evaluation, recipe,
+   augmented, reduced-precision and bench results, each phase's seconds,
+   and one line of kernel results (K1 with an fp32 and with a bf16 pyramid;
+   the first with the AUGMENTED evaluation's launches), then
    ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
    exits non-zero. ``--only PHASE ...`` runs some phases (a rehearsal on
    the card, without the kernels and ok lines).
@@ -122,8 +134,10 @@ FLAGSHIP = dict(out_channels=256, in_channels=512, num_blocks=16,
 # (565,073 params)
 GROUPCOMM = dict(FLAGSHIP, group_size=16)
 # B, Co, Ci, T, depth: the flagship block at batch 1, 4 and 8; a ragged one;
-# one with T % 4 != 0, which takes the kernel's 4-byte load paths; and the
-# GroupComm block at bs4 with its 16 groups folded into the batch
+# one with T % 4 != 0, which takes the kernel's 4-byte load paths; the
+# GroupComm block at bs4 with its 16 groups folded into the batch; the U36
+# block; and the U8/256 block of scripts/torch_port_convergence.py's
+# validation (bs4, 2 s)
 GC_BLOCK = (BATCH * GROUPCOMM["group_size"], 256 // 16, 512 // 16, 3200, 5)
 # the published Improved SuDoRM-RF U36/Bases4096 WHAMR! configuration
 # (sudo_rm_rf_tpu/utils/benchmark.py zoo row sudormrf_R36_B4096), served on
@@ -132,9 +146,10 @@ U36 = dict(out_channels=512, in_channels=512, num_blocks=36, upsampling_depth=5,
            enc_kernel_size=21, enc_num_basis=4096, num_sources=2)
 FS16 = 16000
 U36_BLOCK = (BATCH, 512, 512, 6400, 5)
+CONVERGENCE_BLOCK = (BATCH, 128, 256, 1600, 5)
 BLOCK_SHAPES = [(1, 256, 512, 3200, 5), (4, 256, 512, 3200, 5),
                 (8, 256, 512, 3200, 5), (2, 20, 36, 648, 4), (2, 70, 100, 334, 2),
-                GC_BLOCK, (1, 512, 512, 6400, 5), U36_BLOCK]
+                GC_BLOCK, (1, 512, 512, 6400, 5), U36_BLOCK, CONVERGENCE_BLOCK]
 # the evaluation split: 16 kHz WHAMR-layout test files, two of them longer
 # than the 4 s chunk (the first one is the full-length phase's)
 EVAL_SECONDS = (10.0, 4.0, 4.0, 4.0, 4.5, 4.0, 4.0, 4.0)
@@ -180,6 +195,13 @@ PYRAMID_SHAPES = [(BATCH, 256, 512, 3200, 5), GC_BLOCK, U36_BLOCK]
 PYRAMID_MIN_DB, PYRAMID_MAX_ABS = 80.0, 2e-3
 PYRAMID_FLIP_SHARE, PYRAMID_FLIP_MAX = 1e-5, 1e-2
 F64_SHAPES = [(BATCH, 256, 512, 3200, 5), U36_BLOCK]
+# the AUGMENTED phase: docs/runs/improved_u16_synth/hparams.json (Improved
+# U16/512 at out 256, bs8, 4 s at 8 kHz, Adam 1e-3, clip 5, clamp 30, the
+# xla blocks in bf16) on a hierarchical corpus cut from 50 x 60 train and
+# 10 x 20 val and test utterances, 20000 / 3000 / 3000 mixtures
+AUGMENTED_CUT = dict(train_speakers=12, utts=8, val_speakers=4, test_speakers=4, val_utts=6,
+                     n_train=64, n_eval=16, batch_size=8, seconds=4.0)
+AUGMENTED_TRAIN_ARGV = ("--block_impl", "xla", "--compute_dtype", "bfloat16")
 # reduced-precision serving: the bench's gates (bench.py) and the batches
 # timed; an int8 output under INT8_MIN_DB is a fault, not a miss of the gate
 BF16_GATE_DB, INT8_GATE_DB, INT8_MIN_DB = 35.0, 25.0, 15.0
@@ -322,6 +344,24 @@ def run_cli(main_fn, argv) -> str:
 
 def hp_argv(hp: dict) -> list:
     return [a for key in HP_FLAGS if key in hp for a in (f"--{key}", str(hp[key]))]
+
+
+def checkpoint_weights(model_type: str, hp: dict, path: str) -> dict:
+    """The state_dict held by a msgpack checkpoint of ``sudo-torch-train``."""
+    from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.convert import load_model_from_checkpoint
+
+    model = models.get_model(model_type, **hp, device="cpu")
+    return load_model_from_checkpoint(path, model).state_dict()
+
+
+def checkpoint_counts(path: str) -> tuple:
+    """(step, Adam's count, the schedule's count) of a msgpack TrainState."""
+    from sudo_rm_rf_tpu_torch.convert.flax_checkpoint import read_checkpoint
+
+    tree = read_checkpoint(path)
+    adam, schedule = tree["opt_state"]["1"]["0"], tree["opt_state"]["1"]["1"]
+    return int(tree["step"]), int(adam["count"]), int(schedule["count"])
 
 
 def si_sdr_db(np, est, ref) -> float:
@@ -679,17 +719,17 @@ def train_phase(torch, np, tmp: str, root: str, hp: dict, device: str = "cuda",
             raise RuntimeError(f"no checkpoint relu_epoch_{e} in {sorted(names)}")
     if not any(n.startswith("best_val_SISDRi") for n in names):
         raise RuntimeError(f"no best_ checkpoint in {sorted(names)}")
-    blob = torch.load(os.path.join(ckpts, "smoke", f"relu_epoch_{TRAIN_EPOCHS + 1}"),
-                      map_location="cpu", weights_only=True)
-    adam_steps = {int(s["step"]) for s in blob["optimizer"]["state"].values()}
-    if blob["step"] != (TRAIN_EPOCHS + 1) * steps_per_epoch or adam_steps != {blob["step"]}:
-        raise RuntimeError(f"last checkpoint: step {blob['step']}, Adam steps {adam_steps}")
+    last = os.path.join(ckpts, "smoke", f"relu_epoch_{TRAIN_EPOCHS + 1}")
+    counts = checkpoint_counts(last)
+    if counts != ((TRAIN_EPOCHS + 1) * steps_per_epoch,) * 3:
+        raise RuntimeError(f"last checkpoint: step, Adam and schedule counts {counts}")
+    weights = checkpoint_weights("relu", hp, last)
     print(f"train: step losses {', '.join(f'{v:.3f}' for v in step_losses)}; val SISDRi "
           f"by epoch {', '.join(f'{v:.3f}' for v in val)} dB")
 
     # the trained weights through the serving path
     pt = os.path.join(tmp, "trained.pt")
-    torch.save(blob["model"], pt)
+    torch.save(weights, pt)
     cv = os.path.join(root, f"wav{FS // 1000}k", "min", "cv")
     mix_path = os.path.join(cv, "mix_clean", "utt0000.wav")
     sep_argv = ["--checkpoint", pt, "--input", mix_path, "--out_dir", os.path.join(tmp, "sep"),
@@ -712,7 +752,7 @@ def train_phase(torch, np, tmp: str, root: str, hp: dict, device: str = "cuda",
     print(f"serve the trained weights: {serve_launches} K1 launches; SI-SDRi of one val "
           f"file {best - base:.3f} dB")
 
-    checks = step_checks(torch, np, "relu", hp, blob["model"], _tr_sources(np, root), device,
+    checks = step_checks(torch, np, "relu", hp, weights, _tr_sources(np, root), device,
                          [(i, d) for i in ("fma", "xla") for d in (None, "bfloat16")], reps)
     return dict(step_losses=step_losses, val_sisdri=val, train_launches=train_launches,
                 serve_launches=serve_launches, served_sisdri_db=best - base, **checks)
@@ -743,9 +783,9 @@ def gc_train_phase(torch, np, tmp: str, root: str, hp: dict, device: str = "cuda
     if len(epochs) != 1 or len(losses) != TRAIN_FILES // BATCH or not (
             np.isfinite(losses).all() and np.isfinite(val).all()):
         raise RuntimeError(f"GC epoch lines {epochs}, step losses {losses}")
-    blob = torch.load(os.path.join(tmp, "ckpt", "smoke_gc", "groupcomm_v2_epoch_1"),
-                      map_location="cpu", weights_only=True)
-    checks = step_checks(torch, np, "groupcomm_v2", hp, blob["model"], _tr_sources(np, root),
+    weights = checkpoint_weights("groupcomm_v2", hp, os.path.join(
+        tmp, "ckpt", "smoke_gc", "groupcomm_v2_epoch_1"))
+    checks = step_checks(torch, np, "groupcomm_v2", hp, weights, _tr_sources(np, root),
                          device, [("fma", None), ("xla", None)], reps,
                          mixture_consistency="uniform")
     return dict(step_losses=losses, val_sisdri=val, train_launches=launches, **checks)
@@ -966,17 +1006,181 @@ def recipe_train_phase(torch, np, tmp: str, dataset: str, run: dict, device: str
     if (sorted(val) != want_val or len(losses) != n_train // RECIPE_BATCH
             or not (np.isfinite(losses).all() and np.isfinite(list(val.values())).all())):
         raise RuntimeError(f"{dataset} epoch line {metrics}, step losses {losses}")
-    blob = torch.load(os.path.join(tmp, "ckpt", name, "relu_epoch_1"), map_location="cpu",
-                      weights_only=True)
+    weights = checkpoint_weights("relu", hp, os.path.join(tmp, "ckpt", name, "relu_epoch_1"))
     config = ExperimentConfig(model=ModelConfig(num_sources=hp["num_sources"]),
                               data=DataConfig(train=(dataset,)))
-    checks = step_checks(torch, np, "relu", hp, blob["model"],
+    checks = step_checks(torch, np, "relu", hp, weights,
                          _recipe_batch(np, dataset, root, fs, RECIPE_BATCH), device,
                          [("fma", None)], reps, recipe=make_recipe(config),
                          label=f"{dataset} U16/{hp['out_channels']}", loss_clamp=run["loss_clamp"],
                          mixture_consistency=run["mixture_consistency"])
     return dict(step_losses=losses, val=val, train_launches=launches, epoch_s=epoch_s,
                 **checks)
+
+
+def augmented_phase(torch, np, tmp: str, hp: dict, device: str = "cuda",
+                    cut: dict = AUGMENTED_CUT) -> dict:
+    """Phase 14: the JAX package's train -> checkpoint -> serve loop in the
+    port, at the widths of docs/runs/improved_u16_synth/hparams.json: a
+    hierarchical corpus (cut to ``cut``), ``sudo-torch-train --train
+    AUGMENTED_WSJMIX`` for ``TRAIN_EPOCHS`` epochs saving msgpack TrainStates, one
+    more epoch resumed from them, ``sudo-torch-evaluate --dataset AUGMENTED``
+    of the best checkpoint through K1 beside the ``xla`` blocks, then
+    ``sudo-torch-export`` and ``sudo-torch-separate`` from the exported
+    ``.pt`` and from the msgpack (identical int16 outputs)."""
+    import importlib.util
+
+    from scipy.io import wavfile
+
+    from sudo_rm_rf_tpu_torch import losses
+    from sudo_rm_rf_tpu_torch.cli.evaluate import main as evaluate_main
+    from sudo_rm_rf_tpu_torch.cli.export import main as export_main
+    from sudo_rm_rf_tpu_torch.cli.separate import main as separate_main
+    from sudo_rm_rf_tpu_torch.cli.train import main as train_main
+    from sudo_rm_rf_tpu_torch.data.setup import create_augmented_loader
+    from sudo_rm_rf_tpu_torch.data.synthetic import write_hierarchical_corpus
+    from sudo_rm_rf_tpu_torch.models import load_checkpoint_model
+    from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+
+    t_phase = time.perf_counter()
+    libs = {m: importlib.util.find_spec(m) is not None for m in ("joblib", "msgpack", "flax")}
+    print(f"augmented: installed here (printed only; the port uses none): {libs}")
+    bs, secs = cut["batch_size"], cut["seconds"]
+    t0 = time.perf_counter()
+    root = write_hierarchical_corpus(
+        os.path.join(tmp, "hier"), cut["train_speakers"], cut["val_speakers"],
+        cut["test_speakers"], cut["utts"], cut["val_utts"], fs=FS, seconds=secs, seed=0)
+    print(f"augmented: corpus cut to train {cut['train_speakers']} speakers x {cut['utts']} "
+          f"utterances, val and test {cut['val_speakers']} x {cut['val_utts']} each, of "
+          f"{secs} s (the JAX run: 50 x 60, 10 x 20); n_train {cut['n_train']}, n_val and "
+          f"n_test {cut['n_eval']} (the JAX run: 20000, 3000); written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ckpts, name = os.path.join(tmp, "ckpt"), "smoke_aug"
+    argv = ["--train", "AUGMENTED_WSJMIX", "--val", "AUGMENTED_WSJMIX",
+            "--test", "AUGMENTED_WSJMIX",
+            *[a for split in ("train", "val", "test")
+              for a in (f"--{split}_dataset_paths", os.path.join(root, split))],
+            "--n_train", str(cut["n_train"]), "--n_val", str(cut["n_eval"]),
+            "--n_test", str(cut["n_eval"]), "-bs", str(bs), "--audio_timelength", str(secs),
+            "-fs", str(FS), "-lr", "1e-3", "--clip_grad_norm", "5", "--loss_clamp", "30",
+            "--n_jobs", "4", "--save_checkpoint_every", "1", "--experiment_name", name,
+            "-elp", os.path.join(tmp, "logs"), "-clp", ckpts, "--device", device,
+            *AUGMENTED_TRAIN_ARGV, *hp_argv(hp)]
+    # the training path, with the kernel count at 0 just before it
+    U.fused_uconv_block.launches = 0
+    t0 = time.perf_counter()
+    out = run_cli(train_main, argv + ["--n_epochs", str(TRAIN_EPOCHS)])
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out += run_cli(train_main, argv + ["--n_epochs", str(TRAIN_EPOCHS + 1), "--resume"])
+    resume_s = time.perf_counter() - t0
+    train_launches = U.fused_uconv_block.launches
+    steps_per_epoch = cut["n_train"] // bs
+    resumed = re.search(r"resumed from epoch (\d+): step (\d+), Adam step (\d+)", out)
+    want = (TRAIN_EPOCHS, TRAIN_EPOCHS * steps_per_epoch, TRAIN_EPOCHS * steps_per_epoch)
+    if resumed is None or tuple(map(int, resumed.groups())) != want:
+        raise RuntimeError(f"resume: {resumed and resumed.group(0)}, want {want}")
+    rows = re.findall(r"^epoch (\d+)/\d+ tr_loss=(\S+) val_SISDRi=(\S+) test_SISDRi=(\S+)",
+                      out, re.M)
+    if [int(r[0]) for r in rows] != list(range(1, TRAIN_EPOCHS + 2)) or not np.isfinite(
+            np.array([r[1:] for r in rows], float)).all():
+        raise RuntimeError(f"epoch lines {rows}")
+    if train_launches:
+        raise RuntimeError(f"the AUGMENTED training path launched K1 {train_launches} times")
+    counts = checkpoint_counts(os.path.join(ckpts, name, f"relu_epoch_{TRAIN_EPOCHS + 1}"))
+    if counts != ((TRAIN_EPOCHS + 1) * steps_per_epoch,) * 3:
+        raise RuntimeError(f"last checkpoint: step, Adam and schedule counts {counts}")
+    val = [float(r[2]) for r in rows]
+    test = [float(r[3]) for r in rows]
+    print(f"augmented train: {TRAIN_EPOCHS} epochs in {train_s:.1f} s, the resumed epoch in "
+          f"{resume_s:.1f} s ({steps_per_epoch} steps an epoch; model build, loader and "
+          f"validation included); {resumed.group(0)}; K1 launches {train_launches}; val "
+          f"SISDRi by epoch {val} dB, test {test} dB")
+
+    # the best msgpack checkpoint through sudo-torch-evaluate (K1), and the
+    # same mixtures through the plain blocks
+    best = next(os.path.join(ckpts, name, n) for n in sorted(os.listdir(os.path.join(ckpts, name)))
+                if n.startswith("best_") and not n.endswith(".json"))
+    test_root = os.path.join(root, "test")
+    eval_argv = ["--checkpoint", best, "--dataset", "AUGMENTED", "--dataset_paths", test_root,
+                 "--n_samples", str(cut["n_eval"]), "--timelength", str(secs),
+                 "--batch_size", str(bs), "-fs", str(FS), "--device", device, *hp_argv(hp)]
+    U.fused_uconv_block.launches = 0
+    t0 = time.perf_counter()
+    summary = json.loads(run_cli(evaluate_main, eval_argv).strip().splitlines()[-1])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = U.fused_uconv_block.launches
+    batches = cut["n_eval"] // bs
+    if eval_launches != (hp["num_blocks"] * batches if device == "cuda" else 0):
+        raise RuntimeError(f"evaluation: {eval_launches} K1 launches for {batches} batches")
+    if summary["n_examples"] != batches * bs or not all(
+            np.isfinite(v) for v in summary.values() if isinstance(v, float)):
+        raise RuntimeError(f"evaluation summary {summary}")
+    model = load_checkpoint_model("relu", hp, best, device)
+    loader = create_augmented_loader({"test_dataset_paths": [test_root],
+                                      "n_test": cut["n_eval"], "fs": FS,
+                                      "audio_timelength": secs}, "test").get_generator(
+        batch_size=bs, shuffle=False, num_workers=2)
+    sisdri = losses.PermInvariantSISDR(n_sources=hp["num_sources"], zero_mean=True,
+                                       backward_loss=False, improvement=True,
+                                       return_individual_results=True)
+    plain = []
+    for mixture, targets in loader:
+        mix = torch.from_numpy(mixture[:, None, :]).to(device)
+        est = _standardized_forward(torch, improved_forward_fast, model, "xla")(mix)
+        plain += sisdri(est, torch.from_numpy(targets).to(device),
+                        initial_mixtures=mix).cpu().tolist()
+    diff = abs(summary["si_sdri_mean"] - float(np.mean(plain)))
+    print(f"augmented evaluate: {batches} batches of {bs}, {eval_launches} K1 launches "
+          f"(counted), {eval_s:.2f} s wall; SI-SDRi mean {summary['si_sdri_mean']:.4f} dB "
+          f"through K1, {float(np.mean(plain)):.4f} dB through the xla blocks ({diff:.2e} "
+          f"apart); SDRi {summary['sdri_mean']:.4f} dB (512 taps)")
+    if not diff <= MAX_SISDRI_DIFF_DB:
+        raise RuntimeError(f"SI-SDRi through K1 and xla differ by {diff} dB")
+
+    # export, then separate two test mixtures from the .pt and the msgpack
+    exported = os.path.join(tmp, "exported.pt")
+    t0 = time.perf_counter()
+    run_cli(export_main, ["--checkpoint", best, "--out", exported, *hp_argv(hp)])
+    export_s = time.perf_counter() - t0
+    wavs, first = [], next(iter(loader))[0]
+    for i in range(2):
+        wavs.append(os.path.join(tmp, f"aug_mix{i}.wav"))
+        x = first[i] / np.abs(first[i]).max() * 0.5
+        wavfile.write(wavs[-1], FS, np.round(x * 32767).astype(np.int16))
+    outs, sep_launches, sep_s = {}, {}, {}
+    for kind, ckpt in (("pt", exported), ("msgpack", best)):
+        U.fused_uconv_block.launches = 0
+        t0 = time.perf_counter()
+        run_cli(separate_main, ["--checkpoint", ckpt, "--input", *wavs, "--out_dir",
+                                os.path.join(tmp, f"sep_{kind}"), "--device", device,
+                                "--batch_chunks", str(BATCH), "-fs", str(FS),
+                                "--chunk_seconds", str(CHUNK_SECONDS), *hp_argv(hp)])
+        sep_s[kind] = time.perf_counter() - t0
+        sep_launches[kind] = U.fused_uconv_block.launches
+        outs[kind] = [wavfile.read(os.path.join(tmp, f"sep_{kind}", f"aug_mix{i}_s{s}.wav"))[1]
+                      for i in range(2) for s in (1, 2)]
+    identical = all(np.array_equal(a, b) for a, b in zip(outs["pt"], outs["msgpack"]))
+    print(f"augmented export: {export_s:.2f} s; separate 2 files from the .pt and from the "
+          f"msgpack: {sep_s['pt']:.2f} / {sep_s['msgpack']:.2f} s, K1 launches "
+          f"{sep_launches['pt']} / {sep_launches['msgpack']}; int16 outputs identical: "
+          f"{identical}")
+    want_sep = 2 * hp["num_blocks"] if device == "cuda" else 0
+    if not identical or set(sep_launches.values()) != {want_sep} or not all(
+            o.shape == (int(secs * FS),) for o in outs["pt"]):
+        raise RuntimeError(f"separation from .pt and msgpack: identical {identical}, "
+                           f"K1 launches {sep_launches}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"augmented phase: {phase_s:.1f} s")
+    return dict(val_sisdri=val, test_sisdri=test, resumed=resumed.group(0),
+                train_launches=train_launches, train_s=train_s, resume_s=resume_s,
+                eval_summary=summary, eval_launches=eval_launches, eval_s=eval_s,
+                sisdri_xla=float(np.mean(plain)), sisdri_kernel_vs_xla_db=diff,
+                export_s=export_s, separate_s=sep_s, separate_launches=sep_launches,
+                separate_identical=identical, libraries_present=libs, phase_s=phase_s)
 
 
 def _snr_db(torch, ref, est) -> float:
@@ -1258,8 +1462,8 @@ def bench_phase(torch) -> dict:
     return out
 
 
-PHASES = ("k1", "k1_bf16", "float64", "serve", "train", "evaluate", "recipes", "bf16",
-          "int8", "bench")
+PHASES = ("k1", "k1_bf16", "float64", "serve", "train", "evaluate", "recipes", "augmented",
+          "bf16", "int8", "bench")
 
 
 def main(argv=None) -> int:
@@ -1373,6 +1577,15 @@ def main(argv=None) -> int:
 
     phase("recipes", recipes)
 
+    # 13. the AUGMENTED train -> msgpack checkpoint -> evaluate -> export loop
+    def augmented():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = augmented_phase(torch, np, tmp, FLAGSHIP)
+        print(json.dumps({"augmented": out}))
+        return out
+
+    phase("augmented", augmented)
+
     # 10. reduced-precision serving: bf16 and int8; 11. the bench
     def bf16():
         out = {"relu": bf16_serve_phase(torch, np, "relu", FLAGSHIP),
@@ -1421,6 +1634,8 @@ def main(argv=None) -> int:
            for name, r in recipes.items()},
         "launches_bf16_serving": res["bf16"]["relu"]["kernel"]["k1_launches"],
         "launches_bench_fp32": bench_runs["fp32"]["k1_launches"],
+        "launches_augmented_eval": res["augmented"]["eval_launches"],
+        "launches_augmented_separate": res["augmented"]["separate_launches"]["msgpack"],
         **flagship, "gc_shape": k1["groupcomm"], "u36_shape": k1["u36"],
         "float64_check": res["float64"],
     }, {

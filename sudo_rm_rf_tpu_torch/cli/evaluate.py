@@ -1,7 +1,8 @@
 """`sudo-torch-evaluate`: evaluate a torch checkpoint on a dataset split.
 
 Counterpart of ``sudo_rm_rf_tpu/cli/evaluate.py``. Loads a ``.pt`` (a
-state_dict, or a whole pickled module), standardizes each mixture (ddof=1,
+state_dict, or a whole pickled module) or a msgpack checkpoint of either
+package (bare params or a ``TrainState``), standardizes each mixture (ddof=1,
 eps 1e-9), separates it on ``--device`` through ``improved_forward_fast``
 (model types ``relu``/``improved``) or ``groupcomm_forward_fast``
 (``groupcomm_v2``), which run the CUDA U-ConvBlock kernel on a CUDA tensor,
@@ -16,6 +17,9 @@ per example as one JSON line (the JAX CLI's keys):
 
 ``--full_length`` scores whole recordings (padded to the split's longest)
 through the overlap-add separator, ``--batch_size`` chunks a forward.
+``--dataset AUGMENTED --dataset_paths ROOT ...`` scores ``--n_samples``
+(default 1000) fixed mixtures of a hierarchical corpus (seed 42, as the
+JAX CLI draws them).
 
 Departure from the JAX CLI, for ``--dataset FUSS``: an example's target
 stack is zero-padded to ``--num_sources`` rows, and the JAX CLI scores the
@@ -37,13 +41,13 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Evaluate separation quality")
-    p.add_argument("--checkpoint", required=True, help="torch .pt checkpoint")
+    p.add_argument("--checkpoint", required=True,
+                   help="torch .pt, or a msgpack checkpoint (bare params or TrainState)")
     p.add_argument("--model_type", default="relu")
     p.add_argument("--dataset", default="WHAMR",
                    choices=["WHAM", "WHAMR", "LIBRI2MIX", "FUSS", "AUGMENTED"])
     p.add_argument("--dataset_paths", nargs="+", default=[],
-                   help="hierarchical corpus roots (AUGMENTED only; not ported: "
-                        "ROADMAP queue 1, item 10)")
+                   help="hierarchical corpus roots (AUGMENTED only)")
     p.add_argument("--split", default="test")
     p.add_argument("--separation_task", default="sep_clean")
     p.add_argument("-fs", type=int, default=8000)
@@ -158,24 +162,21 @@ def main(argv=None):
     import torch
 
     from sudo_rm_rf_tpu_torch import losses, models
-    from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import load_pt_file
-    from sudo_rm_rf_tpu_torch.data.setup import create_loader_for_simple_dataset
+    from sudo_rm_rf_tpu_torch.data.setup import (
+        create_augmented_loader,
+        create_loader_for_simple_dataset,
+    )
     from sudo_rm_rf_tpu_torch.models.fast_inference import (
         groupcomm_forward_fast,
         improved_forward_fast,
     )
 
     models.check_model_type(args.model_type)
-    if args.dataset == "AUGMENTED":
-        raise NotImplementedError(
-            "dataset AUGMENTED is not ported yet (ROADMAP queue 1, item 10)")
+    if args.dataset == "AUGMENTED" and not args.dataset_paths:
+        raise SystemExit("--dataset_paths is required with AUGMENTED")
     if args.full_length and args.full_length_mode == "seq_parallel":
         raise NotImplementedError(
             "--full_length_mode seq_parallel is not ported yet (ROADMAP queue 1, item 13)")
-    if not args.checkpoint.endswith(".pt"):
-        raise NotImplementedError(
-            "msgpack checkpoints are not ported yet (ROADMAP queue 1, item 6): "
-            "--checkpoint must be a torch .pt file")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available")
@@ -190,22 +191,27 @@ def main(argv=None):
     if args.model_type == "groupcomm_v2":
         hp["group_size"] = args.group_size
         fast = groupcomm_forward_fast
-    sd, attrs = load_pt_file(args.checkpoint, reference_root=args.reference_root)
-    hp.update(attrs)
-    model = models.get_model(args.model_type, **hp, device=device)
-    # the published v1 checkpoints carry a dead ``ln_mask_in``
-    model.load_state_dict({k: v for k, v in sd.items() if k.split(".")[0] != "ln_mask_in"},
-                          strict=True)
-    model.eval()
+    model = models.load_checkpoint_model(args.model_type, hp, args.checkpoint, device,
+                                         reference_root=args.reference_root)
     separate = functools.partial(fast, model)
 
-    dataset = create_loader_for_simple_dataset(
-        dataset_name=args.dataset, separation_task=args.separation_task,
-        data_split=args.split, sample_rate=args.fs,
-        min_or_max=args.min_or_max, zero_pad=True,
-        timelength=-1.0 if args.full_length else args.timelength,
-        n_samples=args.n_samples, root_dirpath=args.root_dirpath,
-    )
+    if args.dataset == "AUGMENTED":
+        # fixed mixtures of a hierarchical corpus (seed 42 for val and test)
+        dataset = create_augmented_loader({
+            f"{args.split}_dataset_paths": list(args.dataset_paths),
+            f"n_{args.split}": args.n_samples or 1000,
+            "fs": args.fs,
+            "audio_timelength": args.timelength,
+            "n_sources": args.num_sources,
+        }, split=args.split)
+    else:
+        dataset = create_loader_for_simple_dataset(
+            dataset_name=args.dataset, separation_task=args.separation_task,
+            data_split=args.split, sample_rate=args.fs,
+            min_or_max=args.min_or_max, zero_pad=True,
+            timelength=-1.0 if args.full_length else args.timelength,
+            n_samples=args.n_samples, root_dirpath=args.root_dirpath,
+        )
     loader = dataset.get_generator(
         batch_size=1 if args.full_length else args.batch_size,
         shuffle=False, num_workers=2,

@@ -3,8 +3,10 @@
 Counterpart of ``sudo_rm_rf_tpu/cli/separate.py`` in its overlap-add mode
 (``--mode overlap_add``, the default; ``seq_parallel`` raises).
 Takes a ``.pt`` holding a state_dict (the published format, or one written
-from JAX params with ``convert.load_jax_params``) or a whole pickled module,
-and serves it on ``--device`` through ``improved_forward_fast`` (model types
+by ``sudo-torch-export``) or a whole pickled module, or a msgpack checkpoint
+of either package (bare params or a whole ``TrainState``; the file's first
+bytes tell the formats apart, so a name needs no suffix), and serves it on
+``--device`` through ``improved_forward_fast`` (model types
 ``relu``/``improved``) or ``groupcomm_forward_fast`` (``groupcomm_v2``):
 
     sudo-torch-separate --checkpoint Improved_Sudormrf_U16_Bases512_WSJ02mix.pt \
@@ -23,7 +25,8 @@ import sys
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="Separate audio files")
-    p.add_argument("--checkpoint", required=True, help="torch .pt checkpoint")
+    p.add_argument("--checkpoint", required=True,
+                   help="torch .pt, or a msgpack checkpoint (bare params or TrainState)")
     p.add_argument("--model_type", default="relu")
     p.add_argument("--input", nargs="+", required=True)
     p.add_argument("--out_dir", default="./separated")
@@ -50,8 +53,6 @@ def main(argv=None):
     p.add_argument("--enc_num_basis", type=int, default=512)
     p.add_argument("--group_size", type=int, default=16)
     args = p.parse_args(argv)
-    if not args.checkpoint.endswith(".pt"):
-        p.error("--checkpoint must be a torch .pt file")
     if args.mode == "seq_parallel":
         raise NotImplementedError(
             "--mode seq_parallel is not ported yet (ROADMAP queue 1, item 10)")
@@ -59,7 +60,6 @@ def main(argv=None):
     import torch
 
     from sudo_rm_rf_tpu_torch import models
-    from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import load_pt_file
     from sudo_rm_rf_tpu_torch.inference import separate_file
     from sudo_rm_rf_tpu_torch.models.fast_inference import (
         groupcomm_forward_fast,
@@ -81,11 +81,8 @@ def main(argv=None):
     if args.model_type == "groupcomm_v2":
         hp["group_size"] = args.group_size
         fast = groupcomm_forward_fast
-    sd, attrs = load_pt_file(args.checkpoint, reference_root=args.reference_root)
-    hp.update(attrs)
-    model = models.get_model(args.model_type, **hp, device=device)
-    model.load_state_dict(sd, strict=True)
-    model.eval()
+    model = models.load_checkpoint_model(args.model_type, hp, args.checkpoint, device,
+                                         reference_root=args.reference_root)
 
     for path in args.input:
         outs = separate_file(

@@ -1,7 +1,23 @@
-"""Checkpoint interchange: torch ``.pt`` files and the JAX package's param
-trees, into the port."""
+"""Checkpoint interchange: torch ``.pt`` files, the JAX package's param trees
+and its msgpack checkpoints, into and out of the port."""
 
+from sudo_rm_rf_tpu_torch.convert.flax_checkpoint import (
+    checkpoint_format,
+    load_model_from_checkpoint,
+    load_params_from_checkpoint,
+    load_train_state_from_checkpoint,
+    save_train_state,
+)
 from sudo_rm_rf_tpu_torch.convert.jax_params import load_jax_params, load_jax_train_state
 from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import load_pt_file
 
-__all__ = ["load_jax_params", "load_jax_train_state", "load_pt_file"]
+__all__ = [
+    "checkpoint_format",
+    "load_jax_params",
+    "load_jax_train_state",
+    "load_model_from_checkpoint",
+    "load_params_from_checkpoint",
+    "load_pt_file",
+    "load_train_state_from_checkpoint",
+    "save_train_state",
+]

@@ -8,6 +8,9 @@ structure and map the same way.
 
 from __future__ import annotations
 
+from collections.abc import Mapping
+from types import SimpleNamespace
+
 import torch
 
 from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import params_to_state_dict
@@ -22,7 +25,12 @@ def load_jax_params(model, params):
 
 
 def _find_adam_state(tree):
-    """The optax ``ScaleByAdamState`` (count, mu, nu) inside an opt state."""
+    """The optax ``ScaleByAdamState`` (count, mu, nu) inside an opt state: a
+    tree of optax's states, or their state dicts as a checkpoint holds them."""
+    if isinstance(tree, Mapping):
+        if {"count", "mu", "nu"} <= set(tree):
+            return SimpleNamespace(count=tree["count"], mu=tree["mu"], nu=tree["nu"])
+        tree = list(tree.values())
     if all(hasattr(tree, k) for k in ("count", "mu", "nu")):
         return tree
     if isinstance(tree, (tuple, list)):

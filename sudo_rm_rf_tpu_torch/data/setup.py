@@ -1,11 +1,10 @@
 """Dataset dispatch (counterpart of ``sudo_rm_rf_tpu/data/setup.py``): name ->
 loader class, root path, split translation.
 
-The port loads WHAM, WHAMR, FUSS and LIBRI2MIX, the recipes its trainer
-runs; MUSDB and the AUGMENTED_* hierarchical sets raise, naming the ROADMAP
-item that holds them. The FUSS val and test splits become one generator per
-source count, keyed ``{split}_{n}_srcs``, each scored with its own
-stabilized metric.
+The port loads WHAM, WHAMR, FUSS, LIBRI2MIX and the AUGMENTED_* hierarchical
+online-mixing sets; MUSDB raises, naming the ROADMAP item that holds it.
+The FUSS val and test splits become one generator per source count, keyed
+``{split}_{n}_srcs``, each scored with its own stabilized metric.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ _SPLIT_TRANSLATORS = {
     "FUSS": {"train": "train", "test": "eval", "val": "validation"},
 }
 # datasets of the JAX package the port does not load yet
-_WAITING = ("MUSDB", "AUGMENTED")
+_WAITING = ("MUSDB",)
 
 
 def _not_ported(dataset_name: str):
@@ -92,6 +91,28 @@ def create_loader_for_simple_dataset(
     raise _not_ported(dataset_name)
 
 
+def create_augmented_loader(hparams: Dict, split: str = "train"):
+    """An AUGMENTED_* split: online mixing over hierarchical roots with
+    per-dataset priors. hparams keys: ``{split}_dataset_paths`` (the roots),
+    optional ``datasets_priors``, ``n_{split}``, ``max_abs_snr``, ``fs``,
+    ``audio_timelength``, ``n_sources``, ``fixed_seed`` (default: 0, fresh
+    draws each epoch, for train; 42, fixed mixtures, for val and test)."""
+    from sudo_rm_rf_tpu_torch.data.hierarchical import AugmentedOnlineMixingDataset
+
+    paths = hparams[f"{split}_dataset_paths"]
+    fixed_default = 0 if split == "train" else 42
+    return AugmentedOnlineMixingDataset(
+        input_dataset_p=list(paths),
+        datasets_priors=list(hparams.get("datasets_priors", [1.0 / len(paths)] * len(paths))),
+        n_sources=hparams.get("n_sources", 2),
+        n_samples=hparams.get(f"n_{split}", 1000),
+        max_abs_snr=hparams.get("max_abs_snr", 2.5),
+        sample_rate=int(hparams.get("fs", 8000)),
+        selected_timelength=float(hparams.get("audio_timelength", 4.0)),
+        fixed_seed=hparams.get("fixed_seed", fixed_default),
+    )
+
+
 def setup(hparams: Dict) -> Dict:
     """Build {train, val, test, train_val} generators from an hparams dict."""
     generators = {}
@@ -105,6 +126,19 @@ def setup(hparams: Dict) -> Dict:
                 "Current implementation does not support training using "
                 "multiple datasets."
             )
+        if names[0].startswith("AUGMENTED"):
+            if not hparams.get(f"{data_split}_dataset_paths"):
+                generators[data_split] = None
+                continue
+            ds = create_augmented_loader(hparams, data_split)
+            generators[data_split] = ds.get_generator(
+                batch_size=hparams["batch_size"],
+                num_workers=hparams.get("n_jobs", 4),
+                shuffle=data_split == "train",
+                # two batches beyond the steps a dispatch takes, as in JAX
+                prefetch=max(2, int(hparams.get("chain_steps", 1)) + 2),
+            )
+            continue
         if names[0] == "FUSS" and data_split in ("val", "test"):
             generators[data_split] = None
             for n in range(int(hparams.get("min_num_sources", 1)),

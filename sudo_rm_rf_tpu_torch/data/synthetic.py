@@ -1,13 +1,15 @@
-"""Small WHAM-, WHAMR!- and FUSS-layout corpora of synthetic sounds, made
-from a seed, for running the recipes where the real corpora are absent.
+"""Small WHAM-, WHAMR!-, FUSS- and hierarchical-layout corpora of synthetic
+sounds, made from a seed, for running the recipes where the real corpora
+are absent.
 
 Each "speaker" is a source-filter voice: a pitch-contoured impulse train
 with syllabic voicing gates through a speaker-specific formant cascade
 (``synth_utterance`` is the port's copy of the one in
 ``scripts/make_synthetic_corpus.py``). Two different speakers are separable
 by spectro-temporal structure, so a model trained on such mixtures learns.
-The WHAMR! corpus convolves each voice with a synthetic room response and
-adds band-limited noise (the port's copy of
+The hierarchical corpus (one folder a speaker, one an utterance) is that
+script's own. The WHAMR! corpus convolves each voice with a synthetic room
+response and adds band-limited noise (the port's copy of
 ``scripts/make_synthetic_whamr.py``); the FUSS corpus mixes 1-4 sounds of
 five distinct families (``scripts/make_synthetic_fuss.py``). Imports numpy
 and scipy only.
@@ -92,6 +94,31 @@ def write_wham_corpus(root: str, n_train: int = 16, n_val: int = 8,
                 wavfile.write(os.path.join(base, d, f"utt{i:04d}.wav"), fs,
                               np.round(wav * 32767).astype(np.int16))
     return root
+
+
+def write_hierarchical_corpus(out: str, train_speakers: int = 40, val_speakers: int = 10,
+                              test_speakers: int = 10, utts: int = 60, val_utts: int = 20,
+                              fs: int = 8000, seconds: float = 4.0, seed: int = 0) -> str:
+    """Write a hierarchical speaker corpus, ``out/{train,val,test}/spk<s>/utt<u>/wav``
+    (one energy-normalized (1, T) float32 utterance a folder, written as
+    ``joblib.dump`` writes it), the layout that
+    ``data.hierarchical.AugmentedOnlineMixingDataset`` reads. The port's copy
+    of ``scripts/make_synthetic_corpus.py``: the same files, bit for bit, at
+    the same arguments. Split k is drawn from ``seed + k``; val and test take
+    ``val_utts`` utterances a speaker. Returns ``out``."""
+    from sudo_rm_rf_tpu_torch.prep.hierarchical import _dump_sample
+
+    n = int(fs * seconds)
+    for k, (split, n_speakers, n_utts) in enumerate(
+            (("train", train_speakers, utts), ("val", val_speakers, val_utts),
+             ("test", test_speakers, val_utts))):
+        rng = np.random.default_rng(seed + k)
+        for s in range(n_speakers):
+            spk = make_speaker(rng)
+            for u in range(n_utts):
+                _dump_sample(os.path.join(out, split, f"spk{s:03d}", f"utt{u:03d}"),
+                             synth_utterance(spk, rng, fs, n))
+    return out
 
 
 WHAMR_DIRS = ("s1_reverb", "s2_reverb", "s1_anechoic", "s2_anechoic", "noise",

@@ -40,4 +40,26 @@ def get_model(name: str, **kwargs):
     return _REGISTRY[name](**kwargs)
 
 
-__all__ = ["GroupCommSuDORMRF", "SuDORMRFImproved", "check_model_type", "get_model"]
+def load_checkpoint_model(name: str, hp: dict, path: str, device, reference_root=None):
+    """A ``name`` model built from ``hp`` on ``device``, strictly loaded from
+    a checkpoint and in eval mode: a ``torch.save`` file holding a state_dict
+    or a whole pickled module (whose hyperparameters override ``hp``), or a
+    msgpack checkpoint of either package (bare params or a TrainState), told
+    apart by ``convert.checkpoint_format``."""
+    from sudo_rm_rf_tpu_torch import convert
+
+    hp = dict(hp)
+    if convert.checkpoint_format(path) == "torch":
+        sd, attrs = convert.load_pt_file(path, reference_root=reference_root)
+        hp.update(attrs)
+        model = get_model(name, **hp, device=device)
+        # the published v1 checkpoints carry a dead ``ln_mask_in``
+        model.load_state_dict({k: v for k, v in sd.items() if k.split(".")[0] != "ln_mask_in"},
+                              strict=True)
+    else:
+        model = convert.load_model_from_checkpoint(path, get_model(name, **hp, device=device))
+    return model.eval()
+
+
+__all__ = ["GroupCommSuDORMRF", "SuDORMRFImproved", "check_model_type", "get_model",
+           "load_checkpoint_model"]

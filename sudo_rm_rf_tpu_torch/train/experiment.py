@@ -1,8 +1,8 @@
 """The experiment runner behind ``sudo-torch-train`` (counterpart of
 ``sudo_rm_rf_tpu/train/experiment.py``). The recipe follows the training set:
 
-  * WHAM / LIBRI2MIX: online cross-batch remix of the loader's sources, PIT
-    SI-SDR clamped to +-loss_clamp;
+  * WHAM / LIBRI2MIX / AUGMENTED_*: online cross-batch remix of the
+    loader's sources, PIT SI-SDR clamped to +-loss_clamp;
   * WHAMR: the same remix permutation for each slot's reverberant source and
     anechoic target, the mixture the standardized sum of the sources;
   * FUSS: per-slot batch shuffles, a slot permutation and random gains, the
@@ -51,6 +51,9 @@ from sudo_rm_rf_tpu_torch.utils import (
 )
 
 RECIPES = ("WHAM", "LIBRI2MIX", "WHAMR", "FUSS")
+# every hierarchical online-mixing set (AUGMENTED_WSJMIX, ...) takes the
+# WSJ0 remix recipe
+AUGMENTED_PREFIX = "AUGMENTED"
 
 
 @dataclass(frozen=True)
@@ -94,7 +97,7 @@ def make_recipe(config: ExperimentConfig) -> Recipe:
         return Recipe(lambda g, batch: augment_lib.draw_pair_remix(g, *batch[0].shape[:2]),
                       prepare, _default_loss, pairs=True)
 
-    # WHAM / LIBRI2MIX: the trainer's own WSJ0-style remix of (B, S, T) sources
+    # WHAM / LIBRI2MIX / AUGMENTED_*: the trainer's own WSJ0-style remix of (B, S, T) sources
     return Recipe(lambda g, batch: augment_lib.draw_remix(g, *batch.shape[:2]),
                   _default_prepare, _default_loss)
 
@@ -153,7 +156,7 @@ def check_supported(config: ExperimentConfig) -> None:
     check_config(TrainerConfig(optimizer=t.optimizer, upload_dtype=t.upload_dtype))
     for split in ("train", "val", "test", "train_val"):
         for name in getattr(config.data, split):
-            if name not in RECIPES:
+            if name not in RECIPES and not name.startswith(AUGMENTED_PREFIX):
                 raise NotImplementedError(
                     f"dataset {name} is not ported yet (ROADMAP queue 1, item 10)")
 

@@ -5,9 +5,14 @@ The JAX manager's policies and file names: periodic saves
 ``<model>_epoch_<n>`` every N epochs, ``save_if_best`` keeping one
 ``best_<metric>_<value>_<ts>`` and one ``current_<metric>_<value>_<ts>``
 snapshot (each with a ``.json`` of its metadata), ``latest_epoch``,
-``load_best`` and ``load_latest``; every write is atomic. A file holds
-``torch.save({"step", "model", "optimizer"})``: the update count, the model's
-state_dict and the optimizer's, so a run resumes with its Adam moments.
+``load_best`` and ``load_latest``; every write is atomic. A file holds what
+the JAX manager writes: the flax-msgpack state dict of the JAX trainer's
+``TrainState`` (the update count, the params and optax's Adam state;
+``convert.flax_checkpoint``), so a run resumes with its Adam moments and
+either package resumes the other's run. ``restore`` also reads the
+``torch.save({"step", "model", "optimizer"})`` files that earlier versions
+of the port wrote; ``convert.checkpoint_format`` tells the two apart by
+their first bytes.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import re
 from typing import Optional
 
 import torch
+
+from sudo_rm_rf_tpu_torch.convert import flax_checkpoint
 
 
 def _timestamp() -> str:
@@ -44,8 +51,7 @@ class CheckpointManager:
         """Write a ``TrainState`` to <dir>/<tag>."""
         path = self._path(tag)
         tmp = path + ".tmp"
-        torch.save({"step": int(state.step), "model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict()}, tmp)
+        flax_checkpoint.save_train_state(state, tmp)
         os.replace(tmp, path)  # atomic: a crash never leaves a torn file
         if metadata is not None:
             with open(path + ".json", "w") as fh:
@@ -57,6 +63,10 @@ class CheckpointManager:
         place) and return it."""
         if path is None:
             path = self._path(tag)
+        if flax_checkpoint.checkpoint_format(path) == "msgpack":
+            state.step = flax_checkpoint.load_train_state_from_checkpoint(
+                path, state.model, state.optimizer).step
+            return state
         # on the host: load_state_dict copies each tensor to where its param
         # lives, and Adam keeps its step counts on the host
         blob = torch.load(path, map_location="cpu", weights_only=True)

@@ -24,6 +24,7 @@ import torch
 
 from sudo_rm_rf_tpu_torch import models
 from sudo_rm_rf_tpu_torch.data.synthetic import write_fuss_corpus, write_whamr_corpus
+from sudo_rm_rf_tpu_torch.utils import CheckpointManager
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HP = dict(out_channels=16, in_channels=32, num_blocks=1, upsampling_depth=2,
@@ -221,10 +222,9 @@ def test_evaluate_writes_the_per_example_pickle(tmp_path, capsys, whamr_root):
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--full_length", "--full_length_mode", "seq_parallel"], NotImplementedError, "item 13"),
-    (["--dataset", "AUGMENTED"], NotImplementedError, "item 10"),
+    (["--dataset", "AUGMENTED"], SystemExit, "--dataset_paths is required"),
     (["--model_type", "causal"], NotImplementedError, "item 9"),
     (["--model_type", "sepformer"], NotImplementedError, "item 12"),
-    (["--checkpoint", "model.msgpack"], NotImplementedError, "item 6"),
     (["--device", "cuda"], RuntimeError, "no CUDA"),
 ])
 def test_evaluate_raises_for_what_waits(tmp_path, whamr_root, monkeypatch, extra, error, match):
@@ -236,6 +236,24 @@ def test_evaluate_raises_for_what_waits(tmp_path, whamr_root, monkeypatch, extra
         argv += ["--device", "cpu"]
     with pytest.raises(error, match=match):
         main(argv + extra)
+
+
+def test_evaluate_takes_a_msgpack_checkpoint(tmp_path, capsys, whamr_root):
+    """The weights of a ``.pt`` saved as a msgpack TrainState (the layout
+    both packages' CheckpointManager write) give the same summary; msgpack
+    checkpoints waited until the checkpoint bridge was ported."""
+    from sudo_rm_rf_tpu_torch.cli.evaluate import main
+    from sudo_rm_rf_tpu_torch.train.trainer import Trainer
+
+    pt = _checkpoint(tmp_path, "relu")
+    model = models.get_model("relu", **HP)
+    model.load_state_dict(torch.load(pt, weights_only=True))
+    msgpack = str(tmp_path / "relu_epoch_1")
+    CheckpointManager(str(tmp_path), "relu").save(Trainer(model).init_state(), "relu_epoch_1")
+    extra = WHAMR + ["--bss_filter_taps", "1", "--device", "cpu"]
+    want = _run(main, _argv(pt, "relu", whamr_root, extra), capsys)
+    got = _run(main, _argv(msgpack, "relu", whamr_root, extra), capsys)
+    assert got == want and got["n_examples"] == 4
 
 
 def test_evaluate_defaults_match_the_jax_cli():

@@ -378,8 +378,10 @@ def test_train_cli_groupcomm_one_epoch_cpu(tmp_path, capsys):
     assert main(argv) == 0
     out = capsys.readouterr().out
     assert "epoch 1/1" in out and "val_SISDRi=" in out
-    blob = torch.load(tmp_path / "ckpt" / "gc" / "groupcomm_v2_epoch_1", weights_only=True)
-    assert blob["step"] == 2 and "sm.0.TAC.TAC_norm.gamma" in blob["model"]
+    from sudo_rm_rf_tpu_torch.convert.flax_checkpoint import read_checkpoint
+
+    blob = read_checkpoint(str(tmp_path / "ckpt" / "gc" / "groupcomm_v2_epoch_1"))
+    assert blob["step"] == 2 and "gamma" in blob["params"]["sm_0"]["TAC"]["TAC_norm"]
     losses = np.load(tmp_path / "logs" / "gc" / "tr_loss" / "epoch_1.npy")
     assert losses.shape == (2,) and np.isfinite(losses).all()
 

@@ -101,9 +101,12 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
     """In a fresh interpreter, the whole port imports, runs a toy Improved
     and GroupComm forward in every form, separates a tiny wav through
     ``sudo-torch-separate`` with each model type, trains one epoch through
-    ``sudo-torch-train``, serves in bf16 and int8 and runs ``sudo-torch-bench``
-    and the headline bench on the CPU without importing JAX or any module of
-    the JAX package; asking for CUDA where there is none raises."""
+    ``sudo-torch-train``, exports its msgpack checkpoint through
+    ``sudo-torch-export`` and evaluates it on a hierarchical corpus
+    (``--dataset AUGMENTED``), serves in bf16 and int8 and runs
+    ``sudo-torch-bench`` and the headline bench on the CPU without importing
+    JAX, any module of the JAX package, joblib, msgpack or flax; asking for
+    CUDA where there is none raises."""
     code = textwrap.dedent("""
         import os, sys
         import numpy as np
@@ -160,6 +163,22 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
                       "--out_channels", "8", "--in_channels", "16",
                       "--upsampling_depth", "2", "--enc_num_basis", "8"]
         assert train_cli.main(train_argv + ["--device", "cpu"]) == 0
+        # the msgpack checkpoint it saved, exported and evaluated on a
+        # hierarchical corpus
+        from sudo_rm_rf_tpu_torch.cli import evaluate as evaluate_cli, export as export_cli
+        ckpt_dir = os.path.join(tmp, "ckpt", "sudo_tpu_experiment")
+        ckpt = os.path.join(ckpt_dir, next(n for n in os.listdir(ckpt_dir)
+                                           if n.startswith("best_") and not n.endswith(".json")))
+        hp_argv = [a for k, v in hp.items() for a in (f"--{k}", str(v))]
+        assert export_cli.main(["--checkpoint", ckpt, "--out", os.path.join(tmp, "e.pt"),
+                                *hp_argv]) == 0
+        corpus = synthetic.write_hierarchical_corpus(os.path.join(tmp, "hier"), 2, 2, 2, 2,
+                                                     2, seconds=0.5)
+        assert evaluate_cli.main(["--checkpoint", ckpt, "--dataset", "AUGMENTED",
+                                  "--dataset_paths", os.path.join(corpus, "test"),
+                                  "--n_samples", "2", "--timelength", "0.25",
+                                  "--batch_size", "2", "--bss_filter_taps", "1",
+                                  "--device", "cpu", *hp_argv]) == 0
         # reduced precision, int8, the bench CLI and the headline at toy widths
         import sudo_rm_rf_tpu_torch.bench as headline
         from sudo_rm_rf_tpu_torch.cli import bench as bench_cli
@@ -176,7 +195,8 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
         assert bench_cli.main(bench_argv + ["--device", "cpu"]) == 0
         assert headline.main(["--device", "cpu"], hp=dict(hp, num_sources=2),
                              seconds=0.1, reps=1) == 0
-        foreign = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "sudo_rm_rf_tpu"))
+        foreign = sorted(k for k in sys.modules if k.split(".")[0] in (
+            "jax", "sudo_rm_rf_tpu", "joblib", "msgpack", "flax"))
         assert not foreign, foreign
         if not torch.cuda.is_available():
             for call in (

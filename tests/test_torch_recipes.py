@@ -374,7 +374,9 @@ def test_cli_train_whamr_one_epoch_cpu(tmp_path, whamr_root, capsys):
     vals = dict(kv.split("=") for kv in line.split(" (")[0].split()[2:])
     assert sorted(vals) == ["tr_loss", "val_SISDRi"]
     assert all(np.isfinite(float(v)) for v in vals.values())
-    blob = torch.load(tmp_path / "ckpt" / "whamr" / "relu_epoch_1", weights_only=True)
+    from sudo_rm_rf_tpu_torch.convert.flax_checkpoint import read_checkpoint
+
+    blob = read_checkpoint(str(tmp_path / "ckpt" / "whamr" / "relu_epoch_1"))
     assert blob["step"] == 2  # 4 train files at batch 2
 
 
