@@ -99,10 +99,30 @@
    launches a batch) beside the ``xla`` blocks' SI-SDRi (<= 0.01 dB apart),
    ``sudo-torch-export`` to a ``.pt``, and ``sudo-torch-separate`` of two
    files from the ``.pt`` and from the msgpack: identical int16 outputs.
-14. Print JSON lines of the serving, training, evaluation, recipe,
-   augmented, reduced-precision and bench results, each phase's seconds,
-   and one line of kernel results (K1 with an fp32 and with a bf16 pyramid;
-   the first with the AUGMENTED evaluation's launches), then
+14. Causal SuDoRM-RF v3 at the JAX class defaults (U16/512, out 128, depth
+   4, skip-init gains set to 0.2): the bs4 fp32 forward (ms, idle share,
+   device launches, 0 K1 launches), card against CPU on a bs1 forward
+   (>= 80 dB), ``StreamingSeparator`` on the card (hop 160, a context that
+   covers the model's reach: streamed against offline past it >= 80 dB,
+   a half-length stream emitting bit-identical samples), the host time of
+   one push at ``scripts/bench_streaming.py``'s settings, ``python -m
+   sudo_rm_rf_tpu_torch.bench_streaming`` for 1 and 16 streams, and one bs4
+   fp32 train step (ms, idle share, peak memory).
+15. SuDoRM-RF v1 (U16/512, out 128, depth 4) and attentive v1, v2 and v3
+   (U16/512, out 256, depth 5): the bs4 fp32 forward (ms, idle share,
+   launches, peak, 0 K1 launches), card against CPU on a bs1 forward (>= 80
+   dB), one bs4 train step each (the attentive ones with ``train_dropout``:
+   ms, idle share, peak memory). ``remat_blocks`` on Improved U16/512 bs4
+   (fma): one step's grads against the plain step's (<= 1e-4 of each
+   tensor's largest), the step's ms and peak memory with and without it.
+16. ``sudo-torch-separate`` of one 6 s wav on the card for ``causal``,
+   ``softmax`` and ``attention_v2``, from a ``.pt`` and from a msgpack
+   TrainState of the same weights: identical int16, 0 K1 launches.
+17. Print JSON lines of the serving, training, evaluation, recipe,
+   augmented, reduced-precision, bench, causal and zoo results, each
+   phase's seconds, and one line of kernel results (K1 with an fp32 and with
+   a bf16 pyramid; the first with the AUGMENTED evaluation's launches, and
+   its 0 launches on the causal, v1 and attentive paths), then
    ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
    exits non-zero. ``--only PHASE ...`` runs some phases (a rehearsal on
    the card, without the kernels and ok lines).
@@ -206,6 +226,31 @@ AUGMENTED_TRAIN_ARGV = ("--block_impl", "xla", "--compute_dtype", "bfloat16")
 # timed; an int8 output under INT8_MIN_DB is a fault, not a miss of the gate
 BF16_GATE_DB, INT8_GATE_DB, INT8_MIN_DB = 35.0, 25.0, 15.0
 SERVE_BATCHES = (BATCH, 8)
+# the rest of the SuDoRM-RF family, at full width (8 kHz, 4 s, bs4): causal
+# v3 at the JAX class defaults (sudo_rm_rf_tpu/models/causal_sudormrf.py:
+# 141-150), its skip-init gains set to CAUSAL_GAIN (at 0, as drawn, every
+# block passes its input through); v1 at the JAX class defaults (sudormrf.py:
+# 203-212, the MLSP 2020 paper's 1.0x model); attentive v1-v3 at the JAX zoo
+# rows attentive_v2/v3 (utils/benchmark.py:327-336), v1 with the config's
+# 4 heads, 256 dims and dropout 0.1 (v2 and v3 hardcode them)
+CAUSAL = dict(in_audio_channels=1, out_channels=128, in_channels=512, num_blocks=16,
+              upsampling_depth=4, enc_kernel_size=21, enc_num_basis=512, num_sources=2)
+CAUSAL_GAIN = 0.2
+V1 = dict(out_channels=128, in_channels=512, num_blocks=16, upsampling_depth=4,
+          enc_kernel_size=21, enc_num_basis=512, num_sources=2)
+ATTENTIVE = dict(out_channels=256, in_channels=512, num_blocks=16, upsampling_depth=5,
+                 enc_kernel_size=21, enc_num_basis=512, num_sources=2)
+ZOO = {"softmax": V1, "attention": ATTENTIVE, "attention_v2": ATTENTIVE,
+       "attention_v3": ATTENTIVE}
+# scripts/bench_streaming.py:33-38: a 20 ms hop, 400 ms of left context, the
+# granule (160) as lookahead, 1 and 16 concurrent streams
+STREAM_HOP, STREAM_CONTEXT, STREAM_COUNTS = 160, 3200, (1, 16)
+# streamed against offline: a context that covers the causal U16 model's
+# reach into the past (16 blocks x 10 taps x (1 + 2 + 4 + 8) frames x 10
+# samples + the encoder's 200 = 24,200 samples), over a 4 s stream compared
+# past that head
+STREAM_CHECK_CONTEXT = 25600
+ZOO_STEP_REPS = 5
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 25) -> float:
@@ -1462,8 +1507,327 @@ def bench_phase(torch) -> dict:
     return out
 
 
+def zoo_weights(torch, model_type: str, hp: dict) -> dict:
+    """Seeded random weights of a model of the family, drawn on the host;
+    a causal model's skip-init gains set to CAUSAL_GAIN."""
+    from sudo_rm_rf_tpu_torch import models
+
+    model = models.get_model(model_type, **hp, generator=torch.Generator().manual_seed(0))
+    sd = model.state_dict()
+    for k in sd:
+        if k.endswith("skipinit_gain"):
+            sd[k] = torch.tensor(CAUSAL_GAIN)
+    return sd
+
+
+def zoo_model(torch, model_type: str, hp: dict, weights: dict, device: str, **kw):
+    from sudo_rm_rf_tpu_torch import models
+
+    model = models.get_model(model_type, **hp, **kw, device=device)
+    model.load_state_dict(weights)
+    return model
+
+
+def profiled_ms(torch, fn, label: str, reps: int = 10, calls: int = 3) -> dict:
+    """Median ms of fn (CUDA events), the device's busy time, idle share and
+    launches a call (``torch.profiler``), and the top kernels."""
+    ms = time_ms(torch, fn, warmup=2, reps=reps)
+    counts = {}
+    by_name = device_ms_by_kernel(torch, fn, calls, by_part=False, launches=counts)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    row = dict(ms=ms, device_busy_ms=busy, idle_share=1 - busy / ms,
+               device_launches=sum(counts.values()), top_kernels_ms={k[:80]: v for k, v in top})
+    print(f"{label}: {ms:.3f} ms (median of {reps}); torch.profiler over {calls} calls: "
+          f"device busy {busy:.3f} ms, idle {row['idle_share']:.1%}, "
+          f"{row['device_launches']:.0f} device launches a call; top 6 kernels by device "
+          f"ms: " + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+    return row
+
+
+def card_vs_cpu_forward(torch, np, model_type: str, hp: dict, weights: dict, device: str,
+                        label: str) -> dict:
+    """One bs1 4 s forward of the same weights and input on the card and on
+    the CPU (TF32 off): fidelity >= MIN_FIDELITY_DB."""
+    x = np.random.default_rng(3).standard_normal((1, hp.get("in_audio_channels", 1),
+                                                  int(CHUNK_SECONDS * FS))).astype(np.float32)
+    outs = {}
+    for dev in (device, "cpu"):
+        model = zoo_model(torch, model_type, hp, weights, dev).eval()
+        with torch.no_grad():
+            outs[dev] = model(torch.from_numpy(x).to(dev)).double().cpu().numpy()
+        del model
+    fid = fidelity_db(np, outs["cpu"], outs[device])
+    err = float(np.abs(outs["cpu"] - outs[device]).max())
+    print(f"{label} bs1 forward card vs CPU: fidelity {fid:.2f} dB, max |delta| {err:.3e} "
+          f"(max |out| {np.abs(outs['cpu']).max():.3e})")
+    if not (np.isfinite(outs[device]).all() and fid >= MIN_FIDELITY_DB):
+        raise RuntimeError(f"{label}: card vs CPU fidelity {fid:.2f} dB")
+    return dict(fidelity_db=fid, max_abs_err=err)
+
+
+def _brown_batch(np, b: int, s: int, t: int, seed: int):
+    x = np.cumsum(np.random.default_rng(seed).standard_normal((b, s, t)), axis=-1)
+    return (x / x.std(axis=-1, keepdims=True)).astype(np.float32)
+
+
+def zoo_train_step(torch, np, model_type: str, hp: dict, weights: dict, device: str,
+                   label: str, reps: int = ZOO_STEP_REPS, **model_kw) -> dict:
+    """A bs4 fp32 train step (WHAM remix, PIT SI-SDR with the clamp off, so
+    a random model's loss never saturates it; clip 5, Adam): its median ms,
+    idle share, launches and the allocator's peak. Attentive models train
+    with ``train_dropout`` on."""
+    from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig, draw_remix
+
+    dropout = model_type.startswith("attention")
+    model = zoo_model(torch, model_type, hp, weights, device, **model_kw)
+    tr = Trainer(model, TrainerConfig(loss_clamp=0.0, train_dropout=dropout, dropout_seed=0))
+    state, gen = tr.init_state(), torch.Generator().manual_seed(0)
+    batch = torch.from_numpy(_brown_batch(np, BATCH, 2, int(CHUNK_SECONDS * FS), 4)).to(device)
+    step = lambda: tr.train_step(state, batch, draw_remix(gen, BATCH, 2))
+    _, m = step()
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        raise RuntimeError(f"{label} train step: loss {loss}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    row = profiled_ms(torch, step, f"{label} bs{BATCH} fp32 train step"
+                      + (" (train_dropout)" if dropout else ""), reps=reps, calls=2)
+    row.update(peak_mib=torch.cuda.max_memory_allocated() / 2**20, loss=loss,
+               train_dropout=dropout)
+    print(f"{label} train step: peak {row['peak_mib']:.0f} MiB, first loss {loss:.4f}")
+    del model, tr, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def causal_phase(torch, np, device: str = "cuda", hp: dict = CAUSAL,
+                 check_context: int = STREAM_CHECK_CONTEXT, stream_seconds: float = 4.0,
+                 stream_settings=(STREAM_HOP, STREAM_CONTEXT)) -> dict:
+    """Causal SuDoRM-RF v3 at the JAX class defaults: the bs4 offline
+    forward (ms, idle share, launches, 0 K1 launches), card against CPU on
+    one forward, ``StreamingSeparator`` on the card (streamed against the
+    offline forward past the head, emission stability bit for bit, the
+    per-push time), the streaming bench for 1 and 16 streams, and one bs4
+    train step."""
+    import sudo_rm_rf_tpu_torch.bench_streaming as bench_streaming
+    from sudo_rm_rf_tpu_torch.inference import StreamingSeparator
+    from sudo_rm_rf_tpu_torch.models.causal_sudormrf import CausalConv1d
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+
+    weights = zoo_weights(torch, "causal", hp)
+    model = zoo_model(torch, "causal", hp, weights, device).eval()
+    masked = sum(isinstance(m, CausalConv1d) and m.masked for m in model.modules())
+    t = int(CHUNK_SECONDS * FS)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((BATCH, 1, t))
+                         .astype(np.float32)).to(device)
+
+    def fwd():
+        with torch.inference_mode():
+            return model(x)
+
+    # the offline path, with the K1 count at 0 just before it
+    U.fused_uconv_block.launches = 0
+    out = fwd()
+    if out.shape != (BATCH, 2, t) or not torch.isfinite(out).all():
+        raise RuntimeError(f"causal forward: shape {tuple(out.shape)}")
+    res = dict(masked_convs_per_forward=masked)
+    if device == "cuda":
+        res["forward"] = profiled_ms(torch, fwd, f"causal U16/512 bs{BATCH} fp32 forward")
+        print(f"causal: {masked} masked convs a forward, one weight-mask multiply each "
+              f"(not precomputed)")
+    res["k1_launches"] = U.fused_uconv_block.launches
+    if res["k1_launches"]:
+        raise RuntimeError(f"the causal path launched K1 {res['k1_launches']} times")
+    res["card_vs_cpu"] = card_vs_cpu_forward(torch, np, "causal", hp, weights, device,
+                                             "causal U16/512")
+
+    # streaming on the card: streamed against offline past the head
+    n = int(stream_seconds * FS)
+    mixture = (0.5 * np.cumsum(np.random.default_rng(2).standard_normal(n))
+               / np.sqrt(n)).astype(np.float32)
+    sep = StreamingSeparator(model, hop_samples=STREAM_HOP, context_samples=check_context)
+    t0 = time.perf_counter()
+    streamed = sep.separate_stream(mixture)
+    stream_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        offline = model(torch.from_numpy(mixture[None, None]).to(device)).cpu().numpy()[0]
+    head, tail = check_context, hp["enc_kernel_size"] // 2 + 1
+    fid = fidelity_db(np, offline[:, head:-tail].astype(np.float64),
+                      streamed[:, head:-tail].astype(np.float64))
+    err = float(np.abs(offline[:, head:-tail] - streamed[:, head:-tail]).max())
+    half = n // 2
+    shorter = sep.separate_stream(mixture[:half])
+    stable = bool(np.array_equal(shorter[:, :half - sep.lookahead],
+                                 streamed[:, :half - sep.lookahead]))
+    print(f"causal streaming (hop {STREAM_HOP}, context {check_context}, lookahead "
+          f"{sep.lookahead}): {n} samples in {stream_s:.2f} s; streamed vs offline on "
+          f"[{head}, {n - tail}): {fid:.2f} dB, max |delta| {err:.3e}; a half-length "
+          f"stream emits bit-identical samples: {stable}")
+    if not (fid >= MIN_FIDELITY_DB and stable):
+        raise RuntimeError(f"streaming: {fid:.2f} dB against offline, stable {stable}")
+    res["streaming_check"] = dict(context=check_context, fidelity_db=fid, max_abs_err=err,
+                                  emission_stable=stable, stream_s=stream_s)
+
+    # the push of one stream at the bench's settings, as a caller sees it
+    hop, context = stream_settings
+    sep = StreamingSeparator(model, hop_samples=hop, context_samples=context)
+    hops = [mixture[i * hop:(i + 1) * hop] for i in range(60)]
+    times = []
+    for h in hops:
+        t0 = time.perf_counter()
+        sep.push(h)
+        times.append(1e3 * (time.perf_counter() - t0))
+    push_ms = statistics.median(times[10:])
+    print(f"causal StreamingSeparator.push (hop {hop}, context {context}, host clock, "
+          f"the copy back included): median {push_ms:.3f} ms of {1e3 * hop / FS:.0f} ms "
+          f"of audio")
+    res["push_ms"] = push_ms
+    if device == "cuda":
+        lines = run_cli(bench_streaming.main, ["--hop", str(hop), "--context", str(context),
+                                               "--streams", *map(str, STREAM_COUNTS)])
+        res["bench_streaming"] = [json.loads(ln) for ln in lines.splitlines()
+                                  if ln.startswith("{")]
+        if len(res["bench_streaming"]) != len(STREAM_COUNTS):
+            raise RuntimeError(f"bench_streaming printed {lines!r}")
+        res["train_step"] = zoo_train_step(torch, np, "causal", hp, weights, device,
+                                           "causal U16/512")
+    del model, sep
+    return res
+
+
+def zoo_phase(torch, np, device: str = "cuda", zoo: dict = ZOO,
+              remat_hp: dict = FLAGSHIP) -> dict:
+    """v1 and attentive v1-v3 at full width: the bs4 fp32 forward (ms, idle
+    share, launches, peak, 0 K1 launches), card against CPU on one forward,
+    one bs4 train step each (attentive with train_dropout); then
+    ``remat_blocks`` on Improved U16/512: the step's ms and peak with and
+    without it, and the grads of one step against each other."""
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+    from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig, draw_remix
+
+    res = {}
+    t = int(CHUNK_SECONDS * FS)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((BATCH, 1, t))
+                         .astype(np.float32)).to(device)
+    for model_type, hp in zoo.items():
+        label = f"{model_type} U{hp['num_blocks']}/{hp['enc_num_basis']}"
+        weights = zoo_weights(torch, model_type, hp)
+        model = zoo_model(torch, model_type, hp, weights, device).eval()
+
+        def fwd():
+            with torch.inference_mode():
+                return model(x)
+
+        row = {}
+        U.fused_uconv_block.launches = 0
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        out = fwd()
+        if out.shape != (BATCH, hp["num_sources"], t) or not torch.isfinite(out).all():
+            raise RuntimeError(f"{label} forward: shape {tuple(out.shape)}")
+        if device == "cuda":
+            row["forward"] = profiled_ms(torch, fwd, f"{label} bs{BATCH} fp32 forward")
+            row["forward"]["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        row["k1_launches"] = U.fused_uconv_block.launches
+        if row["k1_launches"]:
+            raise RuntimeError(f"{label} launched K1 {row['k1_launches']} times")
+        del model
+        row["card_vs_cpu"] = card_vs_cpu_forward(torch, np, model_type, hp, weights, device,
+                                                 label)
+        if device == "cuda":
+            row["train_step"] = zoo_train_step(torch, np, model_type, hp, weights, device,
+                                               label)
+        res[model_type] = row
+
+    # remat_blocks on Improved U16/512 (fma blocks, the training default)
+    weights = zoo_weights(torch, "relu", remat_hp)
+    batch = torch.from_numpy(_brown_batch(np, BATCH, 2, t, 5)).to(device)
+    grads, remat = {}, {}
+    for on in (False, True):
+        model = zoo_model(torch, "relu", remat_hp, weights, device, block_impl="fma",
+                          remat_blocks=on)
+        tr = Trainer(model, TrainerConfig(loss_clamp=0.0))
+        state = tr.init_state()
+        tr.compute_gradients(state, batch, draw_remix(torch.Generator().manual_seed(7),
+                                                      BATCH, 2))
+        grads[on] = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+        if device == "cuda":
+            gen = torch.Generator().manual_seed(0)
+            step = lambda: tr.train_step(state, batch, draw_remix(gen, BATCH, 2))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(torch, step, warmup=2, reps=ZOO_STEP_REPS)
+            remat[on] = dict(ms=ms, peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        del model, tr, state
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    rel = max(float((grads[True][n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+              for n, g in grads[False].items())
+    print(f"remat_blocks on Improved U16/512 bs{BATCH} fma fp32: grads against the plain "
+          f"step, max |delta| / max |grad| over the tensors {rel:.3e}"
+          + "".join(f"; {'with' if on else 'without'}: step {r['ms']:.3f} ms, peak "
+                    f"{r['peak_mib']:.0f} MiB" for on, r in remat.items()))
+    if not rel <= 1e-4:
+        raise RuntimeError(f"remat_blocks grads differ from the plain ones by {rel:.3e}")
+    res["remat"] = dict(grad_max_rel=rel, **{("with" if k else "without"): v
+                                             for k, v in remat.items()})
+    return res
+
+
+def zoo_cli_phase(torch, np, tmp: str, device: str = "cuda", types=None) -> dict:
+    """``sudo-torch-separate`` of one wav on the card for causal, softmax and
+    attention_v2, from a ``.pt`` and from a msgpack TrainState of the same
+    weights: identical int16, finite and not silent, 0 K1 launches."""
+    from scipy.io import wavfile
+
+    from sudo_rm_rf_tpu_torch.cli.separate import main as separate_main
+    from sudo_rm_rf_tpu_torch.convert import save_train_state
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+    from sudo_rm_rf_tpu_torch.train import Trainer
+
+    types = types or {"causal": CAUSAL, "softmax": V1, "attention_v2": ATTENTIVE}
+    n = int(6.0 * FS)
+    tt = np.arange(n) / FS
+    mix = 0.3 * np.sin(2 * np.pi * 220 * tt) + 0.2 * np.sin(2 * np.pi * 1330 * tt)
+    wav = os.path.join(tmp, "zoo_mix.wav")
+    wavfile.write(wav, FS, (mix * 32767).astype(np.int16))
+    res = {}
+    for model_type, hp in types.items():
+        weights = zoo_weights(torch, model_type, hp)
+        pt, mp = os.path.join(tmp, f"{model_type}.pt"), os.path.join(tmp, f"{model_type}_ckpt")
+        torch.save(weights, pt)
+        save_train_state(Trainer(zoo_model(torch, model_type, hp, weights, "cpu")).init_state(),
+                         mp)
+        outs, secs = {}, {}
+        U.fused_uconv_block.launches = 0
+        for kind, ckpt in (("pt", pt), ("msgpack", mp)):
+            t0 = time.perf_counter()
+            run_cli(separate_main, ["--checkpoint", ckpt, "--model_type", model_type,
+                                    "--input", wav, "--out_dir",
+                                    os.path.join(tmp, f"sep_{model_type}_{kind}"),
+                                    "--device", device, "--batch_chunks", str(BATCH),
+                                    "-fs", str(FS), "--chunk_seconds", str(CHUNK_SECONDS),
+                                    *hp_argv(hp)])
+            secs[kind] = time.perf_counter() - t0
+            outs[kind] = [wavfile.read(os.path.join(
+                tmp, f"sep_{model_type}_{kind}", f"zoo_mix_s{s}.wav"))[1] for s in (1, 2)]
+        launches = U.fused_uconv_block.launches
+        identical = all(np.array_equal(a, b) for a, b in zip(outs["pt"], outs["msgpack"]))
+        ok = all(o.shape == (n,) and np.abs(o).max() > 0 for o in outs["pt"])
+        print(f"CLI {model_type}: one {n / FS:.0f} s file from the .pt / the msgpack in "
+              f"{secs['pt']:.2f} / {secs['msgpack']:.2f} s; int16 identical: {identical}; "
+              f"K1 launches {launches}")
+        if not (identical and ok) or launches:
+            raise RuntimeError(f"CLI {model_type}: identical {identical}, outputs ok {ok}, "
+                               f"K1 launches {launches}")
+        res[model_type] = dict(cli_s=secs, identical=identical, k1_launches=launches)
+    return res
+
+
 PHASES = ("k1", "k1_bf16", "float64", "serve", "train", "evaluate", "recipes", "augmented",
-          "bf16", "int8", "bench")
+          "bf16", "int8", "bench", "causal", "zoo", "zoo_cli")
 
 
 def main(argv=None) -> int:
@@ -1607,6 +1971,28 @@ def main(argv=None) -> int:
     phase("bf16", bf16)
     phase("int8", int8)
     phase("bench", bench)
+
+    # 15.-17. the rest of the family: causal and streaming, v1 and the
+    # attentive models with remat_blocks, and their CLI
+    def causal():
+        out = causal_phase(torch, np)
+        print(json.dumps({"causal": out}))
+        return out
+
+    def zoo():
+        out = zoo_phase(torch, np)
+        print(json.dumps({"zoo": out}))
+        return out
+
+    def zoo_cli():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = zoo_cli_phase(torch, np, tmp)
+        print(json.dumps({"zoo_cli": out}))
+        return out
+
+    phase("causal", causal)
+    phase("zoo", zoo)
+    phase("zoo_cli", zoo_cli)
     print(f"phase seconds: {json.dumps(seconds)}")
     if set(args.only) != set(PHASES):
         print(f"chip_smoke: ran {args.only} only; no kernels line and no ok line")
@@ -1636,6 +2022,11 @@ def main(argv=None) -> int:
         "launches_bench_fp32": bench_runs["fp32"]["k1_launches"],
         "launches_augmented_eval": res["augmented"]["eval_launches"],
         "launches_augmented_separate": res["augmented"]["separate_launches"]["msgpack"],
+        # the causal, v1 and attentive paths hold no U-ConvBlock of K1's kind
+        "launches_causal_path": res["causal"]["k1_launches"],
+        "launches_zoo_paths": sum(r["k1_launches"] for k, r in res["zoo"].items()
+                                  if k != "remat"),
+        "launches_zoo_cli": sum(r["k1_launches"] for r in res["zoo_cli"].values()),
         **flagship, "gc_shape": k1["groupcomm"], "u36_shape": k1["u36"],
         "float64_check": res["float64"],
     }, {

@@ -62,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "training mode")
     p.add_argument("--n_model", type=int, default=1,
                    help="model-parallel size; the port takes 1 only "
-                        "(ROADMAP queue 1, item 5a)")
+                        "(ROADMAP queue 1, item 10)")
     p.add_argument("--grad_accum_steps", type=int, default=1,
                    help="microbatches per optimizer step (large effective "
                         "batches beyond device memory)")
@@ -72,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--upload_dtype", type=str, default=None,
                    choices=[None, "bfloat16", "float32"],
                    help="host->device batch transfer dtype (not ported: "
-                        "ROADMAP queue 1, item 5a)")
+                        "ROADMAP queue 1, item 5)")
     p.add_argument("--max_inflight", type=int, default=0,
                    help="max train dispatches in flight; the port takes 0 "
                         "only, no bound (ROADMAP queue 14)")
@@ -114,8 +114,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="U-ConvBlock form; 'kernel' is forward-only and "
                         "'auto' is not ported (ROADMAP queue 14)")
     p.add_argument("--remat_blocks", action="store_true",
-                   help="rematerialize block activations (not ported: "
-                        "ROADMAP queue 1, item 5a)")
+                   help="recompute block activations in the backward (model "
+                        "types relu and groupcomm_v2): less memory for about "
+                        "one more forward")
     p.add_argument(
         "--model_type", type=str, default="relu",
         choices=["relu", "softmax", "groupcomm_v2", "causal", "attention",

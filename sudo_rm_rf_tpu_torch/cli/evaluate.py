@@ -6,6 +6,8 @@ package (bare params or a ``TrainState``), standardizes each mixture (ddof=1,
 eps 1e-9), separates it on ``--device`` through ``improved_forward_fast``
 (model types ``relu``/``improved``) or ``groupcomm_forward_fast``
 (``groupcomm_v2``), which run the CUDA U-ConvBlock kernel on a CUDA tensor,
+or the module's own forward (the other types; ``attention*`` take
+``--n_heads``/``--att_dims``),
 applies the optional mixture-consistency projection, de-standardizes, and
 reports mean and median SI-SDR, SI-SDRi and BSS-eval SDR, SDRi, SIR and SAR
 per example as one JSON line (the JAX CLI's keys):
@@ -166,10 +168,7 @@ def main(argv=None):
         create_augmented_loader,
         create_loader_for_simple_dataset,
     )
-    from sudo_rm_rf_tpu_torch.models.fast_inference import (
-        groupcomm_forward_fast,
-        improved_forward_fast,
-    )
+    from sudo_rm_rf_tpu_torch.utils.benchmark import serving_forward
 
     models.check_model_type(args.model_type)
     if args.dataset == "AUGMENTED" and not args.dataset_paths:
@@ -187,13 +186,13 @@ def main(argv=None):
         enc_kernel_size=args.enc_kernel_size, enc_num_basis=args.enc_num_basis,
         num_sources=args.num_sources,
     )
-    fast = improved_forward_fast
     if args.model_type == "groupcomm_v2":
         hp["group_size"] = args.group_size
-        fast = groupcomm_forward_fast
+    if args.model_type.startswith("attention"):
+        hp.update(n_heads=args.n_heads, att_dims=args.att_dims)
     model = models.load_checkpoint_model(args.model_type, hp, args.checkpoint, device,
                                          reference_root=args.reference_root)
-    separate = functools.partial(fast, model)
+    separate = functools.partial(serving_forward(model), model)
 
     if args.dataset == "AUGMENTED":
         # fixed mixtures of a hierarchical corpus (seed 42 for val and test)

@@ -7,7 +7,9 @@ by ``sudo-torch-export``) or a whole pickled module, or a msgpack checkpoint
 of either package (bare params or a whole ``TrainState``; the file's first
 bytes tell the formats apart, so a name needs no suffix), and serves it on
 ``--device`` through ``improved_forward_fast`` (model types
-``relu``/``improved``) or ``groupcomm_forward_fast`` (``groupcomm_v2``):
+``relu``/``improved``), ``groupcomm_forward_fast`` (``groupcomm_v2``) or the
+module's own forward (``softmax``, ``causal``, ``attention``,
+``attention_v2``, ``attention_v3``, as the JAX CLI serves every type):
 
     sudo-torch-separate --checkpoint Improved_Sudormrf_U16_Bases512_WSJ02mix.pt \
         --out_channels 256 --input mix1.wav mix2.wav --out_dir ./separated
@@ -61,10 +63,7 @@ def main(argv=None):
 
     from sudo_rm_rf_tpu_torch import models
     from sudo_rm_rf_tpu_torch.inference import separate_file
-    from sudo_rm_rf_tpu_torch.models.fast_inference import (
-        groupcomm_forward_fast,
-        improved_forward_fast,
-    )
+    from sudo_rm_rf_tpu_torch.utils.benchmark import serving_forward
 
     models.check_model_type(args.model_type)
     device = torch.device(args.device)
@@ -77,10 +76,8 @@ def main(argv=None):
         enc_kernel_size=args.enc_kernel_size, enc_num_basis=args.enc_num_basis,
         num_sources=args.num_sources,
     )
-    fast = improved_forward_fast
     if args.model_type == "groupcomm_v2":
         hp["group_size"] = args.group_size
-        fast = groupcomm_forward_fast
     model = models.load_checkpoint_model(args.model_type, hp, args.checkpoint, device,
                                          reference_root=args.reference_root)
 
@@ -90,7 +87,7 @@ def main(argv=None):
             chunk_seconds=args.chunk_seconds, num_sources=args.num_sources,
             batch_chunks=args.batch_chunks,
             mixture_consistency=args.mixture_consistency,
-            forward_fn=functools.partial(fast, model),
+            forward_fn=functools.partial(serving_forward(model), model),
         )
         print(f"{path} -> {outs}")
     return 0

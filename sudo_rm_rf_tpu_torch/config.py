@@ -59,10 +59,6 @@ class DataPaths:
 
 paths = DataPaths()
 
-# options of the JAX package that the port does not take yet
-_WAITING = "ROADMAP queue 1, item 5a"
-
-
 @dataclass
 class ModelConfig:
     """Hyperparameters of the SuDoRM-RF family (the reference CLI's flags)."""
@@ -85,16 +81,18 @@ class ModelConfig:
     # package), 'xla' (plain layers) or 'kernel' (the CUDA kernel, forward
     # only)
     block_impl: str = "fma"
-    remat_blocks: bool = False  # waits
-    scan_blocks: bool = False  # attentive only
+    # recompute each block's activations in the backward (relu and
+    # groupcomm_v2 only, as in the JAX package)
+    remat_blocks: bool = False
+    # attentive only: the JAX scan layout of the block params; the port's
+    # blocks are a plain loop either way
+    scan_blocks: bool = False
 
     def build(self, device=None, generator=None):
         """The port's model for this config, its params drawn from
         ``generator`` and placed on ``device``."""
         from sudo_rm_rf_tpu_torch import models
 
-        if self.remat_blocks:
-            raise NotImplementedError(f"remat_blocks is not ported yet ({_WAITING})")
         kwargs = dict(
             out_channels=self.out_channels,
             in_channels=self.in_channels,
@@ -105,11 +103,16 @@ class ModelConfig:
             num_sources=self.num_sources,
         )
         if self.model_type in ("relu", "improved"):
-            kwargs.update(block_impl=self.block_impl)
+            kwargs.update(block_impl=self.block_impl, remat_blocks=self.remat_blocks)
         elif self.model_type == "groupcomm_v2":
             kwargs.update(group_size=self.group_size,
                           in_audio_channels=self.in_audio_channels,
-                          block_impl=self.block_impl)
+                          block_impl=self.block_impl, remat_blocks=self.remat_blocks)
+        elif self.model_type == "causal":
+            kwargs.update(in_audio_channels=self.in_audio_channels)
+        elif self.model_type.startswith("attention"):
+            kwargs.update(n_heads=self.n_heads, att_dims=self.att_dims,
+                          att_dropout=self.att_dropout, scan_blocks=self.scan_blocks)
         return models.get_model(self.model_type, **kwargs, generator=generator,
                                 device=device)
 

@@ -8,8 +8,12 @@ from sudo_rm_rf_tpu_torch.convert.flax_checkpoint import (
     load_train_state_from_checkpoint,
     save_train_state,
 )
-from sudo_rm_rf_tpu_torch.convert.jax_params import load_jax_params, load_jax_train_state
-from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import load_pt_file
+from sudo_rm_rf_tpu_torch.convert.jax_params import (
+    load_jax_params,
+    load_jax_train_state,
+    unstack_block_params,
+)
+from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import load_pt_file, load_state_dict_checked
 
 __all__ = [
     "checkpoint_format",
@@ -18,6 +22,8 @@ __all__ = [
     "load_model_from_checkpoint",
     "load_params_from_checkpoint",
     "load_pt_file",
+    "load_state_dict_checked",
     "load_train_state_from_checkpoint",
     "save_train_state",
+    "unstack_block_params",
 ]

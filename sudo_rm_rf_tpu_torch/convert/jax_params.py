@@ -3,7 +3,9 @@
 The port's modules carry the torch reference's attribute names, so a flax
 param tree (nested dicts of arrays) maps onto ``model.state_dict()`` by pure
 renaming (``convert.torch_checkpoint``). Adam's moments are trees of the same
-structure and map the same way.
+structure and map the same way. The JAX attentive models' scan layout
+(``sm_scan/block/...``, each leaf stacked over the blocks on axis 0; JAX's
+``attentive.stack_block_params``) is read as the unrolled ``sm_{i}``.
 """
 
 from __future__ import annotations
@@ -13,15 +15,45 @@ from types import SimpleNamespace
 
 import torch
 
-from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import params_to_state_dict
+from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import (
+    load_state_dict_checked,
+    params_to_state_dict,
+)
+
+
+def _take(tree, i):
+    if isinstance(tree, Mapping):
+        return {k: _take(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def unstack_block_params(params):
+    """The unrolled tree (``sm_0`` .. ``sm_{n-1}``) of a tree in the JAX scan
+    layout (``sm_scan/block/...``, leaves stacked on axis 0), the inverse of
+    JAX's ``stack_block_params``; any other tree comes back as it is."""
+    if not isinstance(params, Mapping) or "sm_scan" not in params:
+        return params
+    stacked = params["sm_scan"]["block"]
+    n = len(next(iter(_leaves(stacked))))
+    out = {k: v for k, v in params.items() if k != "sm_scan"}
+    out.update({f"sm_{i}": _take(stacked, i) for i in range(n)})
+    return out
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, Mapping):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def load_jax_params(model, params):
-    """Copy a flax ``params`` tree (nested dicts of numpy arrays) into
-    ``model`` with a strict ``load_state_dict``; returns the model."""
-    model.load_state_dict(params_to_state_dict(params, model.state_dict().keys()),
-                          strict=True)
-    return model
+    """Copy a flax ``params`` tree (nested dicts of numpy arrays, unrolled
+    or in the scan layout) into ``model`` with a strict
+    ``load_state_dict``; returns the model."""
+    return load_state_dict_checked(
+        model, params_to_state_dict(unstack_block_params(params), model.state_dict().keys()))
 
 
 def _find_adam_state(tree):
@@ -58,7 +90,7 @@ def load_jax_train_state(model, optimizer, params, opt_state, step):
         raise ValueError("opt_state holds no Adam state (count, mu, nu)")
     load_jax_params(model, params)
     keys = model.state_dict().keys()
-    mu, nu = params_to_state_dict(adam.mu, keys), params_to_state_dict(adam.nu, keys)
+    mu, nu = (params_to_state_dict(unstack_block_params(m), keys) for m in (adam.mu, adam.nu))
     owned = {id(p) for group in optimizer.param_groups for p in group["params"]}
     count = float(adam.count)
     for name, p in model.named_parameters():
@@ -66,7 +98,7 @@ def load_jax_train_state(model, optimizer, params, opt_state, step):
             raise ValueError(f"optimizer does not hold param {name}")
         optimizer.state[p] = {
             "step": torch.tensor(count, dtype=torch.float32),
-            "exp_avg": mu[name].to(p.device, p.dtype),
-            "exp_avg_sq": nu[name].to(p.device, p.dtype),
+            "exp_avg": mu[name].reshape(p.shape).to(p.device, p.dtype),
+            "exp_avg_sq": nu[name].reshape(p.shape).to(p.device, p.dtype),
         }
     return TrainState(step=int(step), model=model, optimizer=optimizer)

@@ -64,6 +64,29 @@ def params_to_state_dict(params: Mapping, target_keys: Iterable[str]) -> Dict[st
             for path, arr in flat.items()}
 
 
+# buffers a torch checkpoint may hold that no model of either package has: the
+# attentive reference's positional encodings (recomputed on the fly) and
+# batch-norm step counts
+IGNORED_LEAVES = ("pe", "num_batches_tracked")
+
+
+def load_state_dict_checked(model, state_dict: Mapping):
+    """Strict ``model.load_state_dict`` of ``state_dict`` without the
+    ``IGNORED_LEAVES`` buffers, with a tensor whose shape differs from the
+    model's but whose size agrees reshaped to it (a torch scalar param may be
+    saved as (1,) or ()); returns the model."""
+    want = model.state_dict()
+    sd = {}
+    for key, value in state_dict.items():
+        if key.split(".")[-1] in IGNORED_LEAVES:
+            continue
+        if key in want and value.shape != want[key].shape and value.numel() == want[key].numel():
+            value = value.reshape(want[key].shape)
+        sd[key] = value
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
 def load_pt_file(path: str, reference_root: str | None = None):
     """Load a ``.pt`` file into a (state_dict, hyperparameter attrs) pair.
 

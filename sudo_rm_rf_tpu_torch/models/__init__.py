@@ -8,21 +8,30 @@ maps every name to the JAX package's param path. `get_model(name,
 does not have yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
+from sudo_rm_rf_tpu_torch.models.attentive import (
+    AttentiveSuDORMRF,
+    AttentiveSuDORMRFv2,
+    AttentiveSuDORMRFv3,
+)
+from sudo_rm_rf_tpu_torch.models.causal_sudormrf import CausalSuDORMRF
 from sudo_rm_rf_tpu_torch.models.groupcomm_sudormrf import GroupCommSuDORMRF
 from sudo_rm_rf_tpu_torch.models.improved_sudormrf import SuDORMRFImproved
+from sudo_rm_rf_tpu_torch.models.sudormrf import SuDORMRFv1
 
 _REGISTRY = {
     "relu": SuDORMRFImproved,
     "improved": SuDORMRFImproved,
+    "softmax": SuDORMRFv1,
     "groupcomm_v2": GroupCommSuDORMRF,
+    "causal": CausalSuDORMRF,
+    "attention": AttentiveSuDORMRF,
+    "attention_v2": AttentiveSuDORMRFv2,
+    "attention_v3": AttentiveSuDORMRFv3,
 }
-# model types of the JAX package still to port, by ROADMAP queue 1 item
-_WAITING = {
-    "causal": 9,
-    **dict.fromkeys(("softmax", "attention", "attention_v2", "attention_v3",
-                     "convtasnet", "dprnn", "demucs", "tdcn", "residual_tdcn",
-                     "sepformer"), 12),
-}
+# model types of the JAX package still to port: the baselines, ROADMAP
+# queue 1, item 9
+_WAITING = dict.fromkeys(("convtasnet", "dprnn", "demucs", "tdcn", "residual_tdcn",
+                          "sepformer"), 9)
 
 
 def check_model_type(name: str) -> None:
@@ -54,12 +63,13 @@ def load_checkpoint_model(name: str, hp: dict, path: str, device, reference_root
         hp.update(attrs)
         model = get_model(name, **hp, device=device)
         # the published v1 checkpoints carry a dead ``ln_mask_in``
-        model.load_state_dict({k: v for k, v in sd.items() if k.split(".")[0] != "ln_mask_in"},
-                              strict=True)
+        convert.load_state_dict_checked(
+            model, {k: v for k, v in sd.items() if k.split(".")[0] != "ln_mask_in"})
     else:
         model = convert.load_model_from_checkpoint(path, get_model(name, **hp, device=device))
     return model.eval()
 
 
-__all__ = ["GroupCommSuDORMRF", "SuDORMRFImproved", "check_model_type", "get_model",
-           "load_checkpoint_model"]
+__all__ = ["AttentiveSuDORMRF", "AttentiveSuDORMRFv2", "AttentiveSuDORMRFv3",
+           "CausalSuDORMRF", "GroupCommSuDORMRF", "SuDORMRFImproved", "SuDORMRFv1",
+           "check_model_type", "get_model", "load_checkpoint_model"]

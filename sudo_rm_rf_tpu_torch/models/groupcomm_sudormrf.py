@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from sudo_rm_rf_tpu_torch import ops
-from sudo_rm_rf_tpu_torch.models.improved_sudormrf import BLOCK_IMPLS, UConvBlock
+from sudo_rm_rf_tpu_torch.models.improved_sudormrf import BLOCK_IMPLS, UConvBlock, run_blocks
 from sudo_rm_rf_tpu_torch.models.layers import (
     Conv1d,
     ConvTranspose1d,
@@ -226,7 +226,8 @@ class GCUConvBlock(nn.Module):
 
 
 class GroupCommSuDORMRF(nn.Module):
-    """GroupComm SuDoRM-RF v2. Input (B, C_audio, T), output (B, S*C_audio, T)."""
+    """GroupComm SuDoRM-RF v2. Input (B, C_audio, T), output (B, S*C_audio, T).
+    remat_blocks as in ``SuDORMRFImproved``."""
 
     def __init__(self, in_audio_channels: int = 1, out_channels: int = 256,
                  in_channels: int = 512, num_blocks: int = 16,
@@ -236,15 +237,13 @@ class GroupCommSuDORMRF(nn.Module):
                  remat_blocks: bool = False, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        if remat_blocks:
-            raise NotImplementedError(
-                "remat_blocks is not ported yet (ROADMAP queue 1, item 5a)")
         if enc_kernel_size % 2 == 0:
             raise ValueError("encoder kernel must be odd")
         if out_channels % group_size or in_channels % group_size:
             raise ValueError(f"group_size {group_size} must divide out_channels "
                              f"{out_channels} and in_channels {in_channels}")
         g = default_generator(generator)
+        self.remat_blocks = remat_blocks
         self.in_audio_channels = in_audio_channels
         self.out_channels, self.in_channels = out_channels, in_channels
         self.num_blocks, self.upsampling_depth = num_blocks, upsampling_depth
@@ -281,7 +280,7 @@ class GroupCommSuDORMRF(nn.Module):
         x = ops.pad_to_multiple(input_wav, self.n_least_samples_req)
         x = self.encoder(x)
         s = x
-        x = self.sm(self.bottleneck(self.ln(x)))
+        x = run_blocks(self.sm, self.bottleneck(self.ln(x)), self.remat_blocks)
         x = self.mask_net(x)
         b = x.shape[0]
         n_out = self.num_sources * self.in_audio_channels

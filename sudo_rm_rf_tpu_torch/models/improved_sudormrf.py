@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sudo_rm_rf_tpu_torch import ops
 from sudo_rm_rf_tpu_torch.models.layers import (
@@ -37,6 +38,18 @@ from sudo_rm_rf_tpu_torch.ops.uconv import (
 )
 
 BLOCK_IMPLS = ("xla", "fma", "kernel")
+
+
+def run_blocks(blocks: nn.Sequential, x, remat: bool = False):
+    """``blocks(x)``; with ``remat`` each block under
+    ``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes
+    its activations instead of keeping them, as JAX's ``nn.remat`` does.
+    Without autograd there is nothing to keep, and the blocks run plainly."""
+    if not remat or not torch.is_grad_enabled():
+        return blocks(x)
+    for block in blocks:
+        x = checkpoint(block, x, use_reentrant=False)
+    return x
 
 
 class UConvBlock(nn.Module):
@@ -91,15 +104,21 @@ class UConvBlock(nn.Module):
 
 
 class SuDORMRFImproved(nn.Module):
-    """Improved SuDoRM-RF separator. Input (B, 1, T) mixture, output (B, S, T)."""
+    """Improved SuDoRM-RF separator. Input (B, 1, T) mixture, output (B, S, T).
+
+    remat_blocks: recompute each block's activations in the backward
+    (``run_blocks``): about one more forward for O(num_blocks) less memory.
+    """
 
     def __init__(self, out_channels: int = 128, in_channels: int = 512,
                  num_blocks: int = 16, upsampling_depth: int = 4,
                  enc_kernel_size: int = 21, enc_num_basis: int = 512,
-                 num_sources: int = 2, block_impl: str = "xla", *,
+                 num_sources: int = 2, block_impl: str = "xla",
+                 remat_blocks: bool = False, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         g = default_generator(generator)
+        self.remat_blocks = remat_blocks
         self.out_channels, self.in_channels = out_channels, in_channels
         self.num_blocks, self.upsampling_depth = num_blocks, upsampling_depth
         self.enc_kernel_size, self.enc_num_basis = enc_kernel_size, enc_num_basis
@@ -138,7 +157,7 @@ class SuDORMRFImproved(nn.Module):
         x = ops.pad_to_multiple(input_wav, self.n_least_samples_req)
         x = self.encoder(x)
         s = x  # pre-norm encoder features, reused at the mask product
-        x = self.sm(self.bottleneck(self.ln(x)))
+        x = run_blocks(self.sm, self.bottleneck(self.ln(x)), self.remat_blocks)
         x = self.mask_net(x)
         b = x.shape[0]
         x = torch.relu(x.reshape(b, self.num_sources, self.enc_num_basis, -1))

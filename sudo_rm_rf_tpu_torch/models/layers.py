@@ -67,34 +67,47 @@ class Conv1d(nn.Module):
 
 
 class ConvTranspose1d(nn.Module):
-    """Bias-free nn.ConvTranspose1d with torch param layout (weight: (in,
-    out, k)) and xavier init, as the reference's decoder."""
+    """nn.ConvTranspose1d with torch param layout (weight: (in, out/g, k)).
+    By default bias-free with xavier init, as the reference's decoder; v1's
+    grouped decoder takes torch's default init and a bias."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, output_padding: int = 0, *,
+                 stride: int = 1, padding: int = 0, output_padding: int = 0,
+                 groups: int = 1, use_bias: bool = False,
+                 weight_init: Callable = xavier_uniform_conv, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
+        g = default_generator(generator)
         self.stride, self.padding = stride, padding
-        self.output_padding = output_padding
-        shape = (in_channels, out_channels, kernel_size)
-        self.weight = nn.Parameter(
-            xavier_uniform_conv(shape, default_generator(generator)).to(device))
+        self.output_padding, self.groups = output_padding, groups
+        shape = (in_channels, out_channels // groups, kernel_size)
+        self.weight = nn.Parameter(weight_init(shape, g).to(device))
+        if use_bias:
+            bound = 1.0 / math.sqrt(shape[1] * kernel_size)
+            self.bias = nn.Parameter(_uniform((out_channels,), bound, g).to(device))
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x):
         return ops.conv_transpose1d(
-            x, self.weight, stride=self.stride, padding=self.padding,
-            output_padding=self.output_padding)
+            x, self.weight, self.bias, stride=self.stride, padding=self.padding,
+            output_padding=self.output_padding, groups=self.groups)
 
 
 class PReLU(nn.Module):
-    """torch.nn.PReLU with a scalar slope stored with shape (1,), init 0.25."""
+    """torch.nn.PReLU, init 0.25: a scalar slope stored with shape (1,), or
+    one slope per channel (dim 1) with ``num_parameters`` > 1."""
 
-    def __init__(self, *, device=None):
+    def __init__(self, num_parameters: int = 1, *, device=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.full((1,), 0.25, device=device))
+        self.weight = nn.Parameter(torch.full((num_parameters,), 0.25, device=device))
 
     def forward(self, x):
-        return torch.where(x >= 0, x, self.weight[0] * x)
+        if self.weight.shape[0] == 1:
+            slope = self.weight[0]
+        else:
+            slope = self.weight.reshape((1, -1) + (1,) * (x.ndim - 2))
+        return torch.where(x >= 0, x, slope * x)
 
 
 class GlobLN(nn.Module):

@@ -150,9 +150,7 @@ def check_supported(config: ExperimentConfig) -> None:
         if asked:
             raise NotImplementedError(f"{name} is not ported (ROADMAP queue 14)")
     if t.n_model != 1:
-        raise NotImplementedError("n_model > 1 is not ported yet (ROADMAP queue 1, item 5a)")
-    if m.remat_blocks:
-        raise NotImplementedError("remat_blocks is not ported yet (ROADMAP queue 1, item 5a)")
+        raise NotImplementedError("n_model > 1 is not ported yet (ROADMAP queue 1, item 10)")
     check_config(TrainerConfig(optimizer=t.optimizer, upload_dtype=t.upload_dtype))
     for split in ("train", "val", "test", "train_val"):
         for name in getattr(config.data, split):

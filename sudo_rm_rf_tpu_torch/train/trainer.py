@@ -8,10 +8,17 @@ accumulation over microbatches, global-norm clipping, then Adam at the
 stepped learning rate. The clip and the learning-rate count follow optax's
 ``chain(clip_by_global_norm, adam(schedule))``: update k runs at
 ``schedule(k)``.
+
+With ``train_dropout`` the model is in train mode for the forward and
+backward of a train step only, and its dropout layers draw their masks from
+a ``torch.Generator`` the trainer owns (on the model's device, seeded with
+``dropout_seed``); every other forward, and every step without it, is
+deterministic.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -24,7 +31,9 @@ from sudo_rm_rf_tpu_torch.train import augment as augment_lib
 
 # the trainer options of the JAX package that the port does not take yet,
 # each with the ROADMAP item that holds it
-_WAITING = "ROADMAP queue 1, item 5a"
+_WAITING = {"shard_params": "ROADMAP queue 1, item 10",
+            "upload_dtype": "ROADMAP queue 1, item 5",
+            "optimizer": "ROADMAP queue 1, item 9"}
 
 
 def stepped_lr_schedule(
@@ -82,7 +91,9 @@ class TrainerConfig:
     # the loss clamp applies per microbatch
     grad_accum_steps: int = 1
     shard_params: bool = False  # waits
-    train_dropout: bool = False  # waits
+    # dropout in the train steps, from a generator seeded with dropout_seed
+    train_dropout: bool = False
+    dropout_seed: int = 0
     upload_dtype: Optional[str] = None  # waits
 
 
@@ -112,14 +123,14 @@ def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor) -> None:
 
 def check_config(config: TrainerConfig) -> None:
     """Raise for a trainer option the port does not take yet."""
-    for name in ("shard_params", "train_dropout"):
-        if getattr(config, name):
-            raise NotImplementedError(f"{name} is not ported yet ({_WAITING})")
+    if config.shard_params:
+        raise NotImplementedError(f"shard_params is not ported yet ({_WAITING['shard_params']})")
     if config.upload_dtype not in (None, "float32"):
-        raise NotImplementedError(f"upload_dtype is not ported yet ({_WAITING})")
+        raise NotImplementedError(
+            f"upload_dtype is not ported yet ({_WAITING['upload_dtype']})")
     if config.optimizer != "adam":
         raise NotImplementedError(
-            f"optimizer {config.optimizer!r} is not ported yet ({_WAITING})")
+            f"optimizer {config.optimizer!r} is not ported yet ({_WAITING['optimizer']})")
 
 
 def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
@@ -143,6 +154,10 @@ class Trainer:
       prepare_batch: (draws, batch) -> (mixture (B, 1, T), targets (B, S, T));
         defaults to the WSJ0/WHAM online remix of a (B, S, T) source batch
         with draws from ``augment.draw_remix``.
+
+    With ``config.train_dropout`` the model must have dropout layers (the
+    attentive models); ``dropout_generator`` is the generator they draw
+    from.
     """
 
     def __init__(
@@ -161,6 +176,14 @@ class Trainer:
         self.loss_fn = loss_fn
         self.prepare_batch = prepare_batch or _default_prepare
         self.compute_dtype = _dtype(config.compute_dtype)
+        self.dropout_generator = None
+        if config.train_dropout:
+            from sudo_rm_rf_tpu_torch.models.attentive import set_dropout_generator
+
+            self.dropout_generator = torch.Generator(device=self.device).manual_seed(
+                config.dropout_seed)
+            if not set_dropout_generator(model, self.dropout_generator):
+                raise ValueError("train_dropout: the model has no dropout layers")
         self.schedule = stepped_lr_schedule(
             config.learning_rate, config.divide_lr_by, config.patience_epochs,
             config.steps_per_epoch, epoch_end_phase=config.lr_decay_at_epoch_end)
@@ -219,6 +242,10 @@ class Trainer:
         model = state.model
         mixture, targets = self.prepare_batch(draws, self._to_device(batch))
         state.optimizer.zero_grad(set_to_none=True)
+        with self._dropout(model):
+            return self._backward(model, mixture, targets)
+
+    def _backward(self, model, mixture, targets) -> torch.Tensor:
         k = self.config.grad_accum_steps
         if k == 1:
             loss = self._loss(model, mixture, targets)
@@ -233,6 +260,18 @@ class Trainer:
             (loss_i / k).backward()
             loss = loss + loss_i.detach() / k
         return loss
+
+    @contextlib.contextmanager
+    def _dropout(self, model: nn.Module):
+        """Train mode (dropout on) inside, with ``train_dropout``; eval after."""
+        if not self.config.train_dropout:
+            yield
+            return
+        model.train()
+        try:
+            yield
+        finally:
+            model.eval()
 
     def apply_gradients(self, state: TrainState) -> torch.Tensor:
         """Clip the params' ``.grad`` by their global norm and take one Adam

@@ -23,6 +23,7 @@ FLOPs, model-FLOPs utilization and the device allocator's peaks.
 from __future__ import annotations
 
 import copy
+import functools
 import statistics
 import time
 from typing import Callable, Dict, Optional
@@ -243,15 +244,15 @@ def benchmark_model(
 def _waiting(name: str):
     def build():
         raise NotImplementedError(
-            f"zoo row {name!r} is not ported yet (ROADMAP queue 1, item 9: the rest of the zoo)")
+            f"zoo row {name!r} is not ported yet (ROADMAP queue 1, item 9: the baselines)")
 
     return build
 
 
 def reference_model_zoo():
     """The reference's benchmarked model zoo (``extract_model_performance.py:
-    75-121``), as the JAX package lists it: name -> builder. The seven
-    SuDoRM-RF rows build; the baselines and attentive rows raise."""
+    75-121``), as the JAX package lists it: name -> constructor. The SuDoRM-RF
+    and attentive rows build; the baseline rows raise."""
     from sudo_rm_rf_tpu_torch import models
 
     def sudo(blocks, bases=512, channels=256):
@@ -274,7 +275,12 @@ def reference_model_zoo():
             enc_kernel_size=21, enc_num_basis=512, num_sources=2, group_size=16,
             generator=torch.Generator().manual_seed(0)),
     }
-    for name in ("convtasnet", "dprnn", "demucs", "tdcn", "attentive_v2", "attentive_v3",
-                 "sepformer"):
+    for variant in ("v2", "v3"):
+        # the JAX rows take scan_blocks (its compile-size device), a no-op here
+        zoo[f"attentive_{variant}"] = functools.partial(
+            models.get_model, f"attention_{variant}", out_channels=256, in_channels=512,
+            num_blocks=16, upsampling_depth=5, enc_kernel_size=21, enc_num_basis=512,
+            num_sources=2, scan_blocks=True, generator=torch.Generator().manual_seed(0))
+    for name in ("convtasnet", "dprnn", "demucs", "tdcn", "sepformer"):
         zoo[name] = _waiting(name)
     return zoo

@@ -93,9 +93,14 @@ def test_reference_zoo_builds_the_sudormrf_rows():
     zoo = benchmark.reference_model_zoo()
     assert len(zoo) == 14
     built = {"sudormrf_R4", "sudormrf_R8", "sudormrf_R16", "sudormrf_R16_B2048",
-             "sudormrf_R36_B2048", "sudormrf_R36_B4096", "groupcomm_R16"}
+             "sudormrf_R36_B2048", "sudormrf_R36_B4096", "groupcomm_R16", "attentive_v2",
+             "attentive_v3"}
     assert benchmark.count_params(zoo["groupcomm_R16"]()) == 565_073
     assert benchmark.count_params(zoo["sudormrf_R36_B4096"]()) == 26_460_745
+    for name in ("attentive_v2", "attentive_v3"):
+        model = zoo[name]()
+        assert (model.variant, model.n_heads, model.att_dims, model.num_blocks) == (
+            name[-2:], 4, 256, 16)
     for name in sorted(set(zoo) - built):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
             zoo[name]()

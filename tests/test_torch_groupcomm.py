@@ -395,12 +395,12 @@ def test_config_builds_groupcomm_and_waiting_types_raise():
                         in_audio_channels=2, block_impl="xla").build()
     assert (model.group_size, model.in_audio_channels) == (4, 2)
     assert model.sm[0].block_impl == "xla" and model.decoder.weight.shape == (96, 4, 21)
+    # the baselines wait (ROADMAP queue 1, item 9); remat_blocks is taken
     with pytest.raises(NotImplementedError, match="item 9"):
-        models.get_model("causal")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        models.get_model("attention_v2")
-    with pytest.raises(NotImplementedError, match="item 5a"):
-        models.get_model("groupcomm_v2", **HP, remat_blocks=True)
+        models.get_model("dprnn")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        models.get_model("sepformer")
+    assert models.get_model("groupcomm_v2", **HP, remat_blocks=True).remat_blocks
     with pytest.raises(KeyError):
         models.get_model("rele")
 

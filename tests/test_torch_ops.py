@@ -104,7 +104,10 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
     ``sudo-torch-train``, exports its msgpack checkpoint through
     ``sudo-torch-export`` and evaluates it on a hierarchical corpus
     (``--dataset AUGMENTED``), serves in bf16 and int8 and runs
-    ``sudo-torch-bench`` and the headline bench on the CPU without importing
+    ``sudo-torch-bench`` and the headline bench on the CPU, builds all eight
+    SuDoRM-RF model types (the baselines raise, naming their ROADMAP item),
+    separates with ``--model_type causal``, pushes a hop through a
+    ``StreamingSeparator`` and runs the streaming bench, without importing
     JAX, any module of the JAX package, joblib, msgpack or flax; asking for
     CUDA where there is none raises."""
     code = textwrap.dedent("""
@@ -128,6 +131,9 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
         from sudo_rm_rf_tpu_torch.data import libri2mix, loader, setup, synthetic, wham
         from sudo_rm_rf_tpu_torch.train import augment, experiment, trainer
         from sudo_rm_rf_tpu_torch.utils import audio_logging, checkpoint
+        from sudo_rm_rf_tpu_torch.inference import StreamingSeparator, streaming
+        from sudo_rm_rf_tpu_torch.models import attentive, causal_sudormrf, sudormrf
+        import sudo_rm_rf_tpu_torch.bench_streaming as bench_streaming
 
         hp = dict(out_channels=8, in_channels=16, num_blocks=1, upsampling_depth=2,
                   enc_num_basis=8)
@@ -195,6 +201,35 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
         assert bench_cli.main(bench_argv + ["--device", "cpu"]) == 0
         assert headline.main(["--device", "cpu"], hp=dict(hp, num_sources=2),
                              seconds=0.1, reps=1) == 0
+        # the rest of the SuDoRM-RF family, the causal CLI and streaming
+        zoo_hp = dict(hp, upsampling_depth=3)
+        for name in ("relu", "improved", "softmax", "groupcomm_v2", "causal", "attention",
+                     "attention_v2", "attention_v3"):
+            extra = {"group_size": 4} if name == "groupcomm_v2" else {}
+            model = models.get_model(name, **zoo_hp, **extra)
+            with torch.no_grad():
+                assert model(x).shape == (1, 2, 100), name
+        for name in ("convtasnet", "dprnn", "demucs", "tdcn", "residual_tdcn", "sepformer"):
+            try:
+                models.get_model(name)
+            except NotImplementedError as e:
+                assert "ROADMAP queue 1, item 9" in str(e), e
+            else:
+                raise SystemExit(f"{name} did not raise")
+        causal = models.get_model("causal", **hp)
+        ckpt = os.path.join(tmp, "causal.pt")
+        torch.save(causal.state_dict(), ckpt)
+        argv = ["--checkpoint", ckpt, "--model_type", "causal", "--input", wav,
+                "--out_dir", os.path.join(tmp, "causal"), "--device", "cpu",
+                "--chunk_seconds", "0.05", "--batch_chunks", "2"]
+        for k, v in hp.items():
+            argv += [f"--{k}", str(v)]
+        assert separate.main(argv) == 0
+        assert os.path.exists(os.path.join(tmp, "causal", "mix_s2.wav"))
+        sep = StreamingSeparator(causal, hop_samples=40, context_samples=80)
+        assert sep.push(np.zeros(40, np.float32)).shape == (2, 40)
+        assert bench_streaming.main(["--device", "cpu", "--streams", "1", "--n_hi", "2",
+                                     "--hop", "40", "--context", "80"], model_kwargs=hp) == 0
         foreign = sorted(k for k in sys.modules if k.split(".")[0] in (
             "jax", "sudo_rm_rf_tpu", "joblib", "msgpack", "flax"))
         assert not foreign, foreign
@@ -206,6 +241,7 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
                 lambda: train_cli.main(train_argv),  # --device defaults to cuda
                 lambda: bench_cli.main(bench_argv),
                 lambda: headline.main([]),
+                lambda: bench_streaming.main([]),
             ):
                 try:
                     call()

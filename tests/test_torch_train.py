@@ -385,12 +385,13 @@ def test_mixture_consistency_in_the_step_matches_jax(weights):
 @pytest.mark.parametrize("cfg,error", [
     (dict(optimizer="radam_cosine"), NotImplementedError),
     (dict(shard_params=True), NotImplementedError),
-    (dict(train_dropout=True), NotImplementedError),
+    # taken since train_dropout was ported, but only by a model with dropout
+    (dict(train_dropout=True), ValueError),
     (dict(upload_dtype="bfloat16"), NotImplementedError),
     (dict(compute_dtype="bfloat17"), ValueError),
 ])
 def test_trainer_raises_for_options_that_wait(cfg, error):
-    with pytest.raises(error, match="ROADMAP|compute_dtype"):
+    with pytest.raises(error, match="ROADMAP|compute_dtype|no dropout layers"):
         ttrainer.Trainer(models.get_model("relu", **TOY), ttrainer.TrainerConfig(**cfg))
 
 
@@ -504,11 +505,11 @@ def test_run_experiment_stops_early_on_a_plateau(tmp_path, monkeypatch):
     (["--max_inflight", "2"], NotImplementedError),
     (["--device_data"], NotImplementedError),
     (["--n_model", "2"], NotImplementedError),
-    (["--remat_blocks"], NotImplementedError),
+    (["--remat_blocks", "--block_impl", "kernel"], ValueError),
     (["--optimizer", "radam_cosine"], NotImplementedError),
     (["--upload_dtype", "bfloat16"], NotImplementedError),
     (["--train", "MUSDB"], NotImplementedError),
-    (["--model_type", "causal"], NotImplementedError),
+    (["--model_type", "dprnn"], NotImplementedError),
     (["--model_type", "sepformer"], NotImplementedError),
     (["--model_type", "groupcomm_v2", "--block_impl", "kernel"], ValueError),
     (["--device", "cuda"], RuntimeError),
