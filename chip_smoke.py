@@ -118,11 +118,23 @@
 16. ``sudo-torch-separate`` of one 6 s wav on the card for ``causal``,
    ``softmax`` and ``attention_v2``, from a ``.pt`` and from a msgpack
    TrainState of the same weights: identical int16, 0 K1 launches.
-17. Print JSON lines of the serving, training, evaluation, recipe,
-   augmented, reduced-precision, bench, causal and zoo results, each
-   phase's seconds, and one line of kernel results (K1 with an fp32 and with
-   a bf16 pyramid; the first with the AUGMENTED evaluation's launches, and
-   its 0 launches on the causal, v1 and attentive paths), then
+17. The baselines at their published configurations (ConvTasNet, DPRNN,
+   Demucs, TDCN, ResidualTN and SepFormer at the JAX class defaults; seeded
+   random weights): the bs4 fp32 forward (ms, idle share, launches, peak),
+   card against CPU on a bs1 forward (>= 80 dB), one bs4 ``radam_cosine``
+   train step each and SepFormer's at bs1 too (ms, idle share, peak, a
+   finite loss), 0 K1 launches over each model's path; ``sudo-torch-bench``
+   at the JAX zoo's five baseline rows (bs1 and bs4); ``sudo-torch-train
+   --optimizer radam_cosine`` on Improved U16/512's widths cut to one block
+   (its host-bound step would take ~9 min here) for one epoch of 1001 1.5 s
+   files at batch 1 (the JAX trainer's warmup of 1000 updates needs more
+   steps than that) and a resumed second, its counts checked.
+18. Print JSON lines of the serving, training, evaluation, recipe,
+   augmented, reduced-precision, bench, causal, zoo and baseline results,
+   each phase's seconds, and one line of kernel results (K1 with an fp32
+   and with a bf16 pyramid; the first with the AUGMENTED evaluation's
+   launches, and its 0 launches on the causal, v1, attentive and baseline
+   paths), then
    ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
    exits non-zero. ``--only PHASE ...`` runs some phases (a rehearsal on
    the card, without the kernels and ok lines).
@@ -251,6 +263,22 @@ STREAM_HOP, STREAM_CONTEXT, STREAM_COUNTS = 160, 3200, (1, 16)
 # past that head
 STREAM_CHECK_CONTEXT = 25600
 ZOO_STEP_REPS = 5
+# the baselines at their class defaults, the published configurations
+# (ConvTasNet 5.05 M params, DPRNN 2.63 M, Demucs 415.09 M, TDCN 8.63 M,
+# ResidualTN 9.42 M, SepFormer 25.68 M), and the JAX zoo's baseline rows
+BASELINES = dict.fromkeys(("convtasnet", "dprnn", "demucs", "tdcn", "residual_tdcn",
+                           "sepformer"), {})
+BASELINE_BENCH = ("convtasnet", "dprnn", "demucs", "tdcn", "sepformer")
+# sudo-torch-train --optimizer radam_cosine keeps the JAX trainer's warmup
+# of 1000 updates, and its cosine decay needs total_steps = n_epochs x
+# steps_per_epoch past it: one epoch of 1001 files at batch 1. The synthetic
+# voices are gated, so a short file can hold a silent source, whose SI-SDR
+# is NaN: at 1.5 s and seed 0 none of the 1001 + 4 files has one (at 0.5 s,
+# 81 of 2002 train sources are silent). The model is Improved U16/512's
+# widths cut in depth to one block: a U16/512 `fma` step at bs1 is host
+# bound at ~260 ms, so its 2,002 steps took 530 s of the phase's 630.
+RADAM_FILES, RADAM_SECONDS, RADAM_SEED = 1001, 1.5, 0
+RADAM_HP = dict(FLAGSHIP, num_blocks=1)
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 25) -> float:
@@ -1572,29 +1600,32 @@ def _brown_batch(np, b: int, s: int, t: int, seed: int):
 
 
 def zoo_train_step(torch, np, model_type: str, hp: dict, weights: dict, device: str,
-                   label: str, reps: int = ZOO_STEP_REPS, **model_kw) -> dict:
-    """A bs4 fp32 train step (WHAM remix, PIT SI-SDR with the clamp off, so
-    a random model's loss never saturates it; clip 5, Adam): its median ms,
-    idle share, launches and the allocator's peak. Attentive models train
-    with ``train_dropout`` on."""
+                   label: str, reps: int = ZOO_STEP_REPS, batch_size: int = BATCH,
+                   optimizer: str = "adam", **model_kw) -> dict:
+    """A fp32 train step at ``batch_size`` (WHAM remix, PIT SI-SDR with the
+    clamp off, so a random model's loss never saturates it; clip 5,
+    ``optimizer``): its median ms, idle share, launches and the allocator's
+    peak. Attentive models train with ``train_dropout`` on."""
     from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig, draw_remix
 
     dropout = model_type.startswith("attention")
     model = zoo_model(torch, model_type, hp, weights, device, **model_kw)
-    tr = Trainer(model, TrainerConfig(loss_clamp=0.0, train_dropout=dropout, dropout_seed=0))
+    tr = Trainer(model, TrainerConfig(loss_clamp=0.0, train_dropout=dropout, dropout_seed=0,
+                                      optimizer=optimizer))
     state, gen = tr.init_state(), torch.Generator().manual_seed(0)
-    batch = torch.from_numpy(_brown_batch(np, BATCH, 2, int(CHUNK_SECONDS * FS), 4)).to(device)
-    step = lambda: tr.train_step(state, batch, draw_remix(gen, BATCH, 2))
+    batch = torch.from_numpy(_brown_batch(np, batch_size, 2, int(CHUNK_SECONDS * FS), 4)
+                             ).to(device)
+    step = lambda: tr.train_step(state, batch, draw_remix(gen, batch_size, 2))
     _, m = step()
     loss = float(m["loss"])
     if not np.isfinite(loss):
         raise RuntimeError(f"{label} train step: loss {loss}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    row = profiled_ms(torch, step, f"{label} bs{BATCH} fp32 train step"
+    row = profiled_ms(torch, step, f"{label} bs{batch_size} fp32 {optimizer} train step"
                       + (" (train_dropout)" if dropout else ""), reps=reps, calls=2)
     row.update(peak_mib=torch.cuda.max_memory_allocated() / 2**20, loss=loss,
-               train_dropout=dropout)
+               train_dropout=dropout, optimizer=optimizer, batch_size=batch_size)
     print(f"{label} train step: peak {row['peak_mib']:.0f} MiB, first loss {loss:.4f}")
     del model, tr, state
     torch.cuda.empty_cache()
@@ -1826,8 +1857,120 @@ def zoo_cli_phase(torch, np, tmp: str, device: str = "cuda", types=None) -> dict
     return res
 
 
+def baselines_phase(torch, np, tmp: str, device: str = "cuda", zoo: dict = BASELINES,
+                    bench=BASELINE_BENCH, radam_hp: dict = RADAM_HP,
+                    radam_files: int = RADAM_FILES, radam_seconds: float = RADAM_SECONDS,
+                    radam_val_files: int = 4) -> dict:
+    """The baselines at their published configurations: the bs4 fp32
+    forward (ms, idle share, launches, peak), card against CPU on one
+    forward, one bs4 ``radam_cosine`` train step each (SepFormer also at
+    bs1, its published batch), K1 counted 0 times over each model's path;
+    ``sudo-torch-bench`` at the JAX zoo's baseline rows (bs1 and bs4, fp32);
+    then ``sudo-torch-train --optimizer radam_cosine`` on Improved U1/512 (the
+    U16/512 widths, one block) for one epoch and a resumed second (counts
+    checked, 0 K1 launches)."""
+    from sudo_rm_rf_tpu_torch.cli.bench import main as bench_main
+    from sudo_rm_rf_tpu_torch.cli.train import main as train_main
+    from sudo_rm_rf_tpu_torch.data.synthetic import write_wham_corpus
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+
+    res = {}
+    t = int(CHUNK_SECONDS * FS)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((BATCH, 1, t))
+                         .astype(np.float32)).to(device)
+    for model_type, hp in zoo.items():
+        weights = zoo_weights(torch, model_type, hp)
+        n_params = sum(v.numel() for v in weights.values())
+        model = zoo_model(torch, model_type, hp, weights, device).eval()
+
+        def fwd():
+            with torch.inference_mode():
+                return model(x)
+
+        # the model's path (its forward, the CPU comparison and its train
+        # steps), with the K1 count at 0 just before it
+        row = dict(params_m=n_params / 1e6)
+        U.fused_uconv_block.launches = 0
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        out = fwd()
+        if out.shape != (BATCH, 2, t) or not torch.isfinite(out).all():
+            raise RuntimeError(f"{model_type} forward: shape {tuple(out.shape)}")
+        label = f"{model_type} ({n_params / 1e6:.2f} M params)"
+        if device == "cuda":
+            row["forward"] = profiled_ms(torch, fwd, f"{label} bs{BATCH} fp32 forward")
+            row["forward"]["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        del model, out
+        row["card_vs_cpu"] = card_vs_cpu_forward(torch, np, model_type, hp, weights, device,
+                                                 model_type)
+        if device == "cuda":
+            row["train_step"] = zoo_train_step(torch, np, model_type, hp, weights, device,
+                                               model_type, optimizer="radam_cosine")
+            if model_type == "sepformer":
+                row["train_step_bs1"] = zoo_train_step(
+                    torch, np, model_type, hp, weights, device, model_type, batch_size=1,
+                    optimizer="radam_cosine")
+        row["k1_launches"] = U.fused_uconv_block.launches
+        if row["k1_launches"]:
+            raise RuntimeError(f"{model_type} launched K1 {row['k1_launches']} times")
+        res[model_type] = row
+        del weights
+
+    # the JAX zoo's baseline rows through sudo-torch-bench
+    U.fused_uconv_block.launches = 0
+    t0 = time.perf_counter()
+    lines = run_cli(bench_main, ["--models", *bench, "--batch_sizes", "1", str(BATCH),
+                                 "--device", device])
+    rows = [json.loads(ln) for ln in lines.splitlines() if ln.startswith("{")]
+    res["bench"] = dict(rows=rows, seconds=time.perf_counter() - t0,
+                        k1_launches=U.fused_uconv_block.launches)
+    print(f"sudo-torch-bench baselines: {len(rows)} rows in {res['bench']['seconds']:.1f} s, "
+          f"K1 launches {res['bench']['k1_launches']}")
+    if len(rows) != 2 * len(bench) or res["bench"]["k1_launches"] or any(
+            not r["secs_per_batch"] > 0 or not r["gflops_per_batch"] > 0
+            or (device == "cuda" and "mfu_pct" not in r) for r in rows):
+        raise RuntimeError(f"sudo-torch-bench baselines: {rows}")
+
+    # sudo-torch-train --optimizer radam_cosine: one epoch, then a resumed one
+    t0 = time.perf_counter()
+    root = write_wham_corpus(os.path.join(tmp, "radam_wham"), radam_files, radam_val_files,
+                             radam_seconds, FS, seed=RADAM_SEED)
+    corpus_s = time.perf_counter() - t0
+    argv = _train_argv("relu", radam_hp, root, tmp, "radam", device) + [
+        "-bs", "1", "--audio_timelength", str(radam_seconds), "--optimizer", "radam_cosine"]
+    U.fused_uconv_block.launches = 0
+    t0 = time.perf_counter()
+    out = run_cli(train_main, argv + ["--n_epochs", "1"])
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out += run_cli(train_main, argv + ["--n_epochs", "2", "--resume"])
+    resume_s = time.perf_counter() - t0
+    cli_launches = U.fused_uconv_block.launches
+    epochs = re.findall(r"^epoch (\d+)/\d+ tr_loss=(\S+) val_SISDRi=(\S+)", out, re.M)
+    resumed = re.search(r"resumed from epoch (\d+): step (\d+), Adam step (\d+)", out)
+    losses = np.concatenate([np.load(os.path.join(tmp, "logs", "radam", "tr_loss",
+                                                  f"epoch_{e}.npy")) for e in (1, 2)])
+    counts = checkpoint_counts(os.path.join(tmp, "ckpt", "radam", "relu_epoch_2"))
+    print(f"sudo-torch-train --optimizer radam_cosine (U{radam_hp['num_blocks']}/"
+          f"{radam_hp['enc_num_basis']}, bs1, {radam_seconds} s): corpus of {radam_files} "
+          f"files in {corpus_s:.1f} s; one epoch in {first_s:.1f} s, the resumed one in "
+          f"{resume_s:.1f} s; {resumed and resumed.group(0)}; last checkpoint's step, RAdam "
+          f"and schedule counts {counts}; K1 launches {cli_launches}")
+    if ([int(e) for e, _, _ in epochs] != [1, 2] or resumed is None
+            or tuple(map(int, resumed.groups())) != (1, radam_files, radam_files)
+            or counts != (2 * radam_files,) * 3 or len(losses) != 2 * radam_files
+            or not np.isfinite(losses).all() or cli_launches):
+        raise RuntimeError(f"radam_cosine CLI: epochs {epochs}, resumed {resumed}, counts "
+                           f"{counts}, {len(losses)} losses, K1 launches {cli_launches}")
+    res["radam_cli"] = dict(first_epoch_s=first_s, resumed_epoch_s=resume_s,
+                            first_loss=float(losses[0]), last_loss=float(losses[-1]),
+                            val_sisdri=[float(v) for _, _, v in epochs], k1_launches=cli_launches)
+    return res
+
+
 PHASES = ("k1", "k1_bf16", "float64", "serve", "train", "evaluate", "recipes", "augmented",
-          "bf16", "int8", "bench", "causal", "zoo", "zoo_cli")
+          "bf16", "int8", "bench", "causal", "zoo", "zoo_cli", "baselines")
 
 
 def main(argv=None) -> int:
@@ -1990,9 +2133,17 @@ def main(argv=None) -> int:
         print(json.dumps({"zoo_cli": out}))
         return out
 
+    # 17. the baselines, radam_cosine and their bench rows
+    def baselines():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = baselines_phase(torch, np, tmp)
+        print(json.dumps({"baselines": out}))
+        return out
+
     phase("causal", causal)
     phase("zoo", zoo)
     phase("zoo_cli", zoo_cli)
+    phase("baselines", baselines)
     print(f"phase seconds: {json.dumps(seconds)}")
     if set(args.only) != set(PHASES):
         print(f"chip_smoke: ran {args.only} only; no kernels line and no ok line")
@@ -2027,6 +2178,8 @@ def main(argv=None) -> int:
         "launches_zoo_paths": sum(r["k1_launches"] for k, r in res["zoo"].items()
                                   if k != "remat"),
         "launches_zoo_cli": sum(r["k1_launches"] for r in res["zoo_cli"].values()),
+        # nor do the baselines, their bench rows or the radam_cosine CLI run
+        "launches_baseline_paths": sum(r["k1_launches"] for r in res["baselines"].values()),
         **flagship, "gc_shape": k1["groupcomm"], "u36_shape": k1["u36"],
         "float64_check": res["float64"],
     }, {

@@ -77,18 +77,19 @@ def _trace_one(model, args, device, name: str):
     from torch.profiler import ProfilerActivity, profile
 
     from sudo_rm_rf_tpu_torch.models.fast_inference import cast_model
-    from sudo_rm_rf_tpu_torch.utils.benchmark import serving_forward
+    from sudo_rm_rf_tpu_torch.utils.benchmark import has_fast_forward, serving_forward
 
     t = int(args.timelength * args.fs)
     x = torch.randn((args.batch_sizes[-1], 1, t),
                     generator=torch.Generator().manual_seed(1)).to(device)
-    impl = "kernel" if args.path == "serving" and device.type == "cuda" else None
+    fast = args.path == "serving" and has_fast_forward(model)
+    impl = "kernel" if fast and device.type == "cuda" else None
     model = cast_model(model.to(device).eval(), args.dtype, impl)
-    if args.path == "serving":
+    if fast:
         fwd = serving_forward(model, compute_dtype=args.dtype)
         run = lambda: fwd(model, x)  # noqa: E731
     else:
-        xin = x.to(model.encoder.weight.dtype)
+        xin = x.to(next(model.parameters()).dtype)
         run = lambda: model(xin)  # noqa: E731
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":

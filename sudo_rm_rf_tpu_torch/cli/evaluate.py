@@ -170,7 +170,7 @@ def main(argv=None):
     )
     from sudo_rm_rf_tpu_torch.utils.benchmark import serving_forward
 
-    models.check_model_type(args.model_type)
+    models.check_cli_model_type(args.model_type)
     if args.dataset == "AUGMENTED" and not args.dataset_paths:
         raise SystemExit("--dataset_paths is required with AUGMENTED")
     if args.full_length and args.full_length_mode == "seq_parallel":

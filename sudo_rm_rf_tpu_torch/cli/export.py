@@ -49,6 +49,7 @@ def main(argv=None):
     from sudo_rm_rf_tpu_torch import models
     from sudo_rm_rf_tpu_torch.convert import load_model_from_checkpoint
 
+    models.check_cli_model_type(args.model_type)
     hp = dict(
         out_channels=args.out_channels, in_channels=args.in_channels,
         num_blocks=args.num_blocks, upsampling_depth=args.upsampling_depth,

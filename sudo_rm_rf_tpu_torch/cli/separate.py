@@ -65,7 +65,7 @@ def main(argv=None):
     from sudo_rm_rf_tpu_torch.inference import separate_file
     from sudo_rm_rf_tpu_torch.utils.benchmark import serving_forward
 
-    models.check_model_type(args.model_type)
+    models.check_cli_model_type(args.model_type)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available")

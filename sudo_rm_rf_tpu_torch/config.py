@@ -90,9 +90,12 @@ class ModelConfig:
 
     def build(self, device=None, generator=None):
         """The port's model for this config, its params drawn from
-        ``generator`` and placed on ``device``."""
+        ``generator`` and placed on ``device``. A baseline raises the
+        ``ValueError`` of ``models.check_cli_model_type``: this config holds
+        the SuDoRM-RF hyperparameters only."""
         from sudo_rm_rf_tpu_torch import models
 
+        models.check_cli_model_type(self.model_type)
         kwargs = dict(
             out_channels=self.out_channels,
             in_channels=self.in_channels,
@@ -154,7 +157,9 @@ class TrainConfig:
     clip_grad_norm: float = 5.0
     loss_clamp: float = 30.0
     mixture_consistency: Optional[str] = None
-    optimizer: str = "adam"  # 'radam_cosine' waits
+    # 'adam', or 'radam_cosine' (RAdam, a linear warmup of TrainerConfig's
+    # warmup_steps, cosine decay to n_epochs x steps_per_epoch)
+    optimizer: str = "adam"
     grad_accum_steps: int = 1
     # train steps per dispatch; the port takes them one by one (1)
     chain_steps: int = 1

@@ -3,9 +3,12 @@
 The port's modules carry the torch reference's attribute names, so a flax
 param tree (nested dicts of arrays) maps onto ``model.state_dict()`` by pure
 renaming (``convert.torch_checkpoint``). Adam's moments are trees of the same
-structure and map the same way. The JAX attentive models' scan layout
-(``sm_scan/block/...``, each leaf stacked over the blocks on axis 0; JAX's
-``attentive.stack_block_params``) is read as the unrolled ``sm_{i}``.
+structure and map the same way. The JAX package's scan layouts are read as
+the unrolled trees: the attentive models' ``sm_scan/block/...`` (each leaf
+stacked over the blocks on axis 0; JAX's ``attentive.stack_block_params``)
+as ``sm_{i}``, and SepFormer's ``layers_scan/layer/...`` inside every
+encoder (``masknet/dual_mdl_i/{intra,inter}_mdl/mdl``; JAX's
+``sepformer.stack_sepformer_params``) as ``layers_{j}``.
 """
 
 from __future__ import annotations
@@ -27,17 +30,30 @@ def _take(tree, i):
     return tree[i]
 
 
+# scan node -> (its child holding the stacked leaves, the unrolled prefix)
+_SCAN_LAYOUTS = {"sm_scan": ("block", "sm"), "layers_scan": ("layer", "layers")}
+
+
 def unstack_block_params(params):
-    """The unrolled tree (``sm_0`` .. ``sm_{n-1}``) of a tree in the JAX scan
-    layout (``sm_scan/block/...``, leaves stacked on axis 0), the inverse of
-    JAX's ``stack_block_params``; any other tree comes back as it is."""
-    if not isinstance(params, Mapping) or "sm_scan" not in params:
+    """The unrolled tree of a tree in a JAX scan layout, at any depth: each
+    ``sm_scan/block`` becomes ``sm_0`` .. ``sm_{n-1}`` and each
+    ``layers_scan/layer`` ``layers_0`` .. (leaves stacked on axis 0), the
+    inverse of JAX's ``stack_block_params`` and ``stack_sepformer_params``;
+    a tree in no scan layout comes back as it is (the same object)."""
+    if not isinstance(params, Mapping):
         return params
-    stacked = params["sm_scan"]["block"]
-    n = len(next(iter(_leaves(stacked))))
-    out = {k: v for k, v in params.items() if k != "sm_scan"}
-    out.update({f"sm_{i}": _take(stacked, i) for i in range(n)})
-    return out
+    out = {}
+    for key, value in params.items():
+        if key in _SCAN_LAYOUTS:
+            child, prefix = _SCAN_LAYOUTS[key]
+            stacked = value[child]
+            n = len(next(iter(_leaves(stacked))))
+            out.update({f"{prefix}_{i}": unstack_block_params(_take(stacked, i))
+                        for i in range(n)})
+        else:
+            out[key] = unstack_block_params(value)
+    same = out.keys() == params.keys() and all(out[k] is params[k] for k in out)
+    return params if same else out
 
 
 def _leaves(tree):

@@ -34,7 +34,7 @@ import torch
 
 from sudo_rm_rf_tpu_torch import losses as losses_lib
 from sudo_rm_rf_tpu_torch.config import ExperimentConfig
-from sudo_rm_rf_tpu_torch.models import check_model_type
+from sudo_rm_rf_tpu_torch.models import check_cli_model_type
 from sudo_rm_rf_tpu_torch.train import augment as augment_lib
 from sudo_rm_rf_tpu_torch.train.trainer import (
     Trainer,
@@ -136,7 +136,7 @@ def val_mixture(m: np.ndarray) -> np.ndarray:
 def check_supported(config: ExperimentConfig) -> None:
     """Raise for an option the port does not take (yet)."""
     m, t = config.model, config.train
-    check_model_type(m.model_type)
+    check_cli_model_type(m.model_type)
     if m.block_impl == "kernel":
         raise ValueError("block_impl 'kernel' is forward-only: train with "
                          "block_impl 'fma' or 'xla'")
@@ -210,6 +210,7 @@ def run_experiment(
             mixture_consistency=mixture_consistency,
             optimizer=config.train.optimizer,
             grad_accum_steps=config.train.grad_accum_steps,
+            total_steps=max(config.train.n_epochs * steps_per_epoch, 1),
             compute_dtype=config.train.compute_dtype,
             upload_dtype=config.train.upload_dtype,
         ),

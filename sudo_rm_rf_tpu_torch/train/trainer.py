@@ -9,6 +9,17 @@ stepped learning rate. The clip and the learning-rate count follow optax's
 ``chain(clip_by_global_norm, adam(schedule))``: update k runs at
 ``schedule(k)``.
 
+``optimizer="radam_cosine"`` is the JAX trainer's ``chain(clip_by_global_norm,
+radam(warmup_cosine_decay_schedule(0, lr, warmup_steps, total_steps)))``,
+written to optax's formulas (:class:`RAdam`, :func:`warmup_cosine_schedule`)
+rather than ``torch.optim.RAdam``, which differs where it matters: optax
+divides by ``sqrt(nu_hat) + eps`` (torch by ``sqrt(nu) + eps``, rescaled by
+``sqrt(1 - b2^t)``), rectifies where ``rho_t >= 5`` (torch where ``rho_t >
+5``), and its first update runs at ``schedule(0) = 0``, so it moves the
+moments and no param. Its state is Adam's (``step``, ``exp_avg``,
+``exp_avg_sq``: optax's ``ScaleByAdamState`` count, mu and nu), so a run
+resumes across the packages either way.
+
 With ``train_dropout`` the model is in train mode for the forward and
 backward of a train step only, and its dropout layers draw their masks from
 a ``torch.Generator`` the trainer owns (on the model's device, seeded with
@@ -32,8 +43,8 @@ from sudo_rm_rf_tpu_torch.train import augment as augment_lib
 # the trainer options of the JAX package that the port does not take yet,
 # each with the ROADMAP item that holds it
 _WAITING = {"shard_params": "ROADMAP queue 1, item 10",
-            "upload_dtype": "ROADMAP queue 1, item 5",
-            "optimizer": "ROADMAP queue 1, item 9"}
+            "upload_dtype": "ROADMAP queue 1, item 5"}
+OPTIMIZERS = ("adam", "radam_cosine")
 
 
 def stepped_lr_schedule(
@@ -64,6 +75,99 @@ def stepped_lr_schedule(
     return schedule
 
 
+def warmup_cosine_schedule(peak_value: float, warmup_steps: int,
+                           decay_steps: int) -> Callable[[int], float]:
+    """optax's ``warmup_cosine_decay_schedule(0, peak_value, warmup_steps,
+    decay_steps)`` in float32: a linear ramp from 0 over ``warmup_steps``,
+    then ``peak * (1 + cos(pi * min(t, T) / T)) / 2`` at t = step -
+    warmup_steps, T = decay_steps - warmup_steps. Like optax, it raises
+    unless T > 0."""
+    if not decay_steps - warmup_steps > 0:
+        raise ValueError(
+            f"the cosine decay needs total_steps > warmup_steps, got total_steps "
+            f"{decay_steps} and warmup_steps {warmup_steps} (optax's "
+            f"warmup_cosine_decay_schedule raises so too)")
+    f32 = np.float32
+    peak, span = f32(peak_value), f32(decay_steps - warmup_steps)
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            frac = f32(1) - f32(max(step, 0)) / f32(warmup_steps)
+            return float(-peak * frac + peak)
+        count = min(f32(step - warmup_steps), span)
+        return float(peak * (f32(0.5) * (f32(1) + np.cos(f32(np.pi) * count / span))))
+
+    return schedule
+
+
+class RAdam(torch.optim.Optimizer):
+    """optax's ``radam`` (``scale_by_radam`` then ``-lr``) as a torch
+    optimizer; ``lr`` is set per update by the trainer. Per param, with
+    t the count of updates including this one:
+
+        mu = b1 mu + (1 - b1) g;  nu = b2 nu + (1 - b2) g^2
+        rho = rho_inf - 2 t b2^t / (1 - b2^t),  rho_inf = 2 / (1 - b2) - 1
+        mu_hat = mu / (1 - b1^t);  nu_hat = nu / (1 - b2^t)
+        u = r mu_hat / (sqrt(nu_hat) + eps) where rho >= threshold, else mu_hat
+        p -= lr u
+
+    with r = sqrt((rho - 4)(rho - 2) rho_inf / ((rho_inf - 4)(rho_inf - 2)
+    rho)). The scalars are computed on the host in float32, as the JAX
+    trainer's jitted optax does: there XLA takes b^t as a float32 power,
+    which numpy's float32 power reproduces (for b2 = 0.999 at every t up to
+    3000). rho_t = 1999 - 1993.0... at t = 6 loses five digits to
+    cancellation, so one ulp of b2^t moves r by ~0.6%; optax run eagerly
+    (b^t by squaring) parts from its jitted self by as much.
+    """
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 threshold: float = 5.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, threshold=threshold))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        f32 = np.float32
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            for p in params:
+                if not self.state[p]:
+                    self.state[p] = {"step": torch.tensor(0.0),
+                                     "exp_avg": torch.zeros_like(p),
+                                     "exp_avg_sq": torch.zeros_like(p)}
+            states = [self.state[p] for p in params]
+            t = int(states[0]["step"]) + 1
+            grads = [p.grad for p in params]
+            mus = [st["exp_avg"] for st in states]
+            nus = [st["exp_avg_sq"] for st in states]
+            torch._foreach_mul_(mus, b1)
+            torch._foreach_add_(mus, grads, alpha=1 - b1)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_addcmul_(nus, grads, grads, value=1 - b2)
+            b2t = f32(b2) ** f32(t)
+            rho_inf = f32(2.0 / (1.0 - b2) - 1.0)
+            rho = rho_inf - f32(2) * f32(t) * b2t / (f32(1) - b2t)
+            bc1, bc2 = f32(1) - f32(b1) ** f32(t), f32(1) - b2t
+            lr = float(f32(group["lr"]))
+            if rho >= group["threshold"]:
+                r = np.sqrt((rho - f32(4)) * (rho - f32(2)) * rho_inf
+                            / ((rho_inf - f32(4)) * (rho_inf - f32(2)) * rho))
+                denom = torch._foreach_div(nus, float(bc2))
+                torch._foreach_sqrt_(denom)
+                torch._foreach_add_(denom, group["eps"])
+                upd = torch._foreach_div(mus, float(bc1))
+                torch._foreach_mul_(upd, float(r))
+                torch._foreach_div_(upd, denom)
+            else:
+                upd = torch._foreach_div(mus, float(bc1))
+            torch._foreach_mul_(upd, -lr)
+            torch._foreach_add_(params, upd)
+            for st in states:
+                st["step"].fill_(t)
+
+
 @dataclass
 class TrainState:
     """The model (fp32 master params), its Adam and the count of updates."""
@@ -83,7 +187,12 @@ class TrainerConfig:
     loss_clamp: float = 30.0  # 0 disables
     lr_decay_at_epoch_end: bool = False
     mixture_consistency: Optional[str] = None  # None | 'uniform' | 'magsq'
-    optimizer: str = "adam"  # 'radam_cosine' waits
+    # 'adam' (the SuDoRM-RF runners) or 'radam_cosine' (RAdam with a linear
+    # warmup and a cosine decay to total_steps, as the reference's baseline
+    # runner trains)
+    optimizer: str = "adam"
+    warmup_steps: int = 1000
+    total_steps: int = 100_000
     # forward/backward in this dtype over fp32 master params; the loss and
     # the update stay fp32. None = fp32.
     compute_dtype: Optional[str] = None
@@ -128,9 +237,8 @@ def check_config(config: TrainerConfig) -> None:
     if config.upload_dtype not in (None, "float32"):
         raise NotImplementedError(
             f"upload_dtype is not ported yet ({_WAITING['upload_dtype']})")
-    if config.optimizer != "adam":
-        raise NotImplementedError(
-            f"optimizer {config.optimizer!r} is not ported yet ({_WAITING['optimizer']})")
+    if config.optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {config.optimizer!r}; have {OPTIMIZERS}")
 
 
 def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
@@ -184,9 +292,13 @@ class Trainer:
                 config.dropout_seed)
             if not set_dropout_generator(model, self.dropout_generator):
                 raise ValueError("train_dropout: the model has no dropout layers")
-        self.schedule = stepped_lr_schedule(
-            config.learning_rate, config.divide_lr_by, config.patience_epochs,
-            config.steps_per_epoch, epoch_end_phase=config.lr_decay_at_epoch_end)
+        if config.optimizer == "radam_cosine":
+            self.schedule = warmup_cosine_schedule(config.learning_rate, config.warmup_steps,
+                                                   config.total_steps)
+        else:
+            self.schedule = stepped_lr_schedule(
+                config.learning_rate, config.divide_lr_by, config.patience_epochs,
+                config.steps_per_epoch, epoch_end_phase=config.lr_decay_at_epoch_end)
 
     @property
     def device(self) -> torch.device:
@@ -195,9 +307,12 @@ class Trainer:
     # -- state ---------------------------------------------------------------
 
     def init_state(self) -> TrainState:
-        """State from the model's current params, with fresh Adam moments."""
-        opt = torch.optim.Adam(self.model.parameters(), lr=self.config.learning_rate,
-                               betas=(0.9, 0.999), eps=1e-8)
+        """State from the model's current params, with fresh moments."""
+        if self.config.optimizer == "radam_cosine":
+            opt = RAdam(self.model.parameters(), lr=self.config.learning_rate)
+        else:
+            opt = torch.optim.Adam(self.model.parameters(), lr=self.config.learning_rate,
+                                   betas=(0.9, 0.999), eps=1e-8)
         return TrainState(step=0, model=self.model, optimizer=opt)
 
     def state_from_params(self, state_dict) -> TrainState:
@@ -274,9 +389,17 @@ class Trainer:
             model.eval()
 
     def apply_gradients(self, state: TrainState) -> torch.Tensor:
-        """Clip the params' ``.grad`` by their global norm and take one Adam
-        step at ``schedule(state.step)``; returns the norm before the clip."""
-        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+        """Clip the params' ``.grad`` by their global norm and take one
+        optimizer step at ``schedule(state.step)``; returns the norm before
+        the clip."""
+        params = list(state.model.parameters())
+        for p in params:
+            if p.grad is None:
+                # a param the loss does not reach (ConvTasNet's last residual
+                # conv): optax steps it with a zero gradient, so its moments
+                # decay and its count moves with every other param's
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
         norm = global_norm(grads)
         if self.config.clip_grad_norm > 0:
             clip_by_global_norm_(grads, self.config.clip_grad_norm, norm)

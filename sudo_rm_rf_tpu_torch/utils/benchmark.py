@@ -12,7 +12,10 @@ FLOPs, model-FLOPs utilization and the device allocator's peaks.
   ``torch.utils.flop_counter.FlopCounterMode`` over the plain forward
   (``impl="xla"``) on the ``meta`` device, and used for every impl and
   dtype, so ``mfu_pct`` reads the same work whatever runs it. Products and
-  convolutions are counted, elementwise work is not. A backward row counts
+  convolutions are counted, elementwise work is not. An ``nn.LSTM`` (DPRNN,
+  Demucs) is counted from its shapes, 8 H (I + H) T a direction and layer:
+  what ``FlopCounterMode`` counts of its meta decomposition into per-step
+  products, at a thousandth of the host time. A backward row counts
   three forwards of the module (forward, input and weight gradients):
   FlopCounterMode's ``convolution_backward`` formula counts a grouped
   (depthwise) convolution as a dense one (1,279.6 GFLOP for U16/512 at bs4,
@@ -91,36 +94,74 @@ def count_flops(fn: Callable, *args) -> float:
     return float(counter.get_total_flops())
 
 
+def lstm_flops(lstm: torch.nn.LSTM, batch: int, steps: int) -> float:
+    """FLOPs of a batch-first ``nn.LSTM`` forward over (batch, steps, I): its
+    input and recurrent products, 8 H (I + H) a step, direction and layer."""
+    dirs = 2 if lstm.bidirectional else 1
+    h = lstm.hidden_size
+    return float(sum(dirs * 8 * h * ((lstm.input_size if k == 0 else dirs * h) + h)
+                     for k in range(lstm.num_layers)) * batch * steps)
+
+
+def _meta_counted(model):
+    """A meta copy of ``model`` whose LSTMs count their FLOPs from their
+    shapes into the returned list and return zeros: the same count as their
+    meta decomposition into per-step products, without its thousands of
+    calls (DPRNN's took 30 s)."""
+    meta, tally = on_meta(model), []
+
+    def counted(self, x, hx=None):
+        b, t = x.shape[:2]
+        tally.append(lstm_flops(self, b, t))
+        dirs = 2 if self.bidirectional else 1
+        return x.new_zeros((b, t, dirs * self.hidden_size)), None
+
+    for m in meta.modules():
+        if isinstance(m, torch.nn.LSTM):
+            m.forward = counted.__get__(m)
+    return meta, tally
+
+
 def forward_flops(model, batch_size: int, n_samples: int) -> float:
     """FLOPs of the plain serving forward (``impl="xla"``) of a (batch_size,
     1, n_samples) input, counted on the meta device."""
     fwd = serving_forward(model, impl="xla")
-    meta = on_meta(model)
+    meta, tally = _meta_counted(model)
     with torch.no_grad():
-        return count_flops(fwd, meta, torch.empty((batch_size, 1, n_samples), device="meta"))
+        flops = count_flops(fwd, meta, torch.empty((batch_size, 1, n_samples), device="meta"))
+    return flops + sum(tally)
 
 
 def backward_flops(model, batch_size: int, n_samples: int) -> float:
     """FLOPs of a training step's forward and backward through the module's
     own blocks: three times its forward, counted on the meta device."""
-    meta = on_meta(model)
+    meta, tally = _meta_counted(model)
     with torch.no_grad():
-        return 3 * count_flops(meta, torch.empty((batch_size, 1, n_samples), device="meta"))
+        flops = count_flops(meta, torch.empty((batch_size, 1, n_samples), device="meta"))
+    return 3 * (flops + sum(tally))
+
+
+def has_fast_forward(model) -> bool:
+    """Whether ``model`` serves through a fast forward (the Improved and
+    GroupComm SuDoRM-RF families) rather than its module forward."""
+    from sudo_rm_rf_tpu_torch.models import GroupCommSuDORMRF, SuDORMRFImproved
+
+    return isinstance(model, (SuDORMRFImproved, GroupCommSuDORMRF))
 
 
 def serving_forward(model, impl: Optional[str] = None, compute_dtype=None) -> Callable:
     """The serving forward of a model, ``fn(model, x)``: the fast forwards
     of the SuDoRM-RF families (``impl`` None: their default, ``kernel`` on a
     CUDA tensor), the module's own forward otherwise."""
-    from sudo_rm_rf_tpu_torch.models import GroupCommSuDORMRF, SuDORMRFImproved
+    from sudo_rm_rf_tpu_torch.models import SuDORMRFImproved
     from sudo_rm_rf_tpu_torch.models import fast_inference as fi
 
     kw = dict(impl=impl, compute_dtype=compute_dtype)
+    if not has_fast_forward(model):
+        return lambda m, v: m(v)
     if isinstance(model, SuDORMRFImproved):
         return lambda m, v: fi.improved_forward_fast(m, v, **kw)
-    if isinstance(model, GroupCommSuDORMRF):
-        return lambda m, v: fi.groupcomm_forward_fast(m, v, **kw)
-    return lambda m, v: m(v)
+    return lambda m, v: fi.groupcomm_forward_fast(m, v, **kw)
 
 
 def time_call(fn: Callable, device, n: int = 21, warmup: int = 3) -> float:
@@ -164,7 +205,9 @@ def benchmark_model(
     ``device`` (the model is moved there).
 
     path: 'serving' times the model's serving forward (its fast forward at
-    its card default, ``kernel``); 'apply' the module's own forward. dtype:
+    its card default, ``kernel``; a model without one, as the baselines,
+    serves through its module forward); 'apply' the module's own forward.
+    dtype:
     the forward's compute dtype ('bfloat16': params and input cast, the
     serving forwards' fp32 statistics and output; the module's forward runs
     wholly in it). A backward row times loss, gradients and an SGD-style
@@ -197,15 +240,16 @@ def benchmark_model(
         from sudo_rm_rf_tpu_torch.models.fast_inference import cast_model
 
         # cast once, not per call, for the blocks that run (K1 on a card)
-        impl = "kernel" if path == "serving" and device.type == "cuda" else None
+        fast = path == "serving" and has_fast_forward(model)
+        impl = "kernel" if fast and device.type == "cuda" else None
         served = cast_model(model.eval(), dtype, impl)
-        if path == "serving":
+        if fast:
             fwd = serving_forward(model, compute_dtype=dtype)
 
             def step():
                 return fwd(served, x)
         else:
-            xin = x.to(served.encoder.weight.dtype)
+            xin = x.to(next(served.parameters()).dtype)
 
             def step():
                 with torch.no_grad():
@@ -241,18 +285,11 @@ def benchmark_model(
     return result
 
 
-def _waiting(name: str):
-    def build():
-        raise NotImplementedError(
-            f"zoo row {name!r} is not ported yet (ROADMAP queue 1, item 9: the baselines)")
-
-    return build
-
-
 def reference_model_zoo():
     """The reference's benchmarked model zoo (``extract_model_performance.py:
-    75-121``), as the JAX package lists it: name -> constructor. The SuDoRM-RF
-    and attentive rows build; the baseline rows raise."""
+    75-121``), as the JAX package lists it: name -> constructor, every row
+    seeded. The baselines are at their class defaults, the published
+    configurations (Demucs: 415.09 M params, 1.66 GB in fp32)."""
     from sudo_rm_rf_tpu_torch import models
 
     def sudo(blocks, bases=512, channels=256):
@@ -282,5 +319,8 @@ def reference_model_zoo():
             num_blocks=16, upsampling_depth=5, enc_kernel_size=21, enc_num_basis=512,
             num_sources=2, scan_blocks=True, generator=torch.Generator().manual_seed(0))
     for name in ("convtasnet", "dprnn", "demucs", "tdcn", "sepformer"):
-        zoo[name] = _waiting(name)
+        # SepFormer's JAX row takes scan_layers, a no-op here
+        kw = dict(scan_layers=True) if name == "sepformer" else {}
+        zoo[name] = functools.partial(models.get_model, name, **kw,
+                                      generator=torch.Generator().manual_seed(0))
     return zoo

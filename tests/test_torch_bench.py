@@ -1,8 +1,10 @@
 """``sudo-torch-bench`` and ``python -m sudo_rm_rf_tpu_torch.bench`` on the
 CPU at toy widths: the rows and the headline carry the JAX package's keys
 (``sudo_rm_rf_tpu/utils/benchmark.py::benchmark_model``, root ``bench.py``),
-the FLOP count does not depend on the impl or dtype, the zoo builds its
-SuDoRM-RF rows and refuses the rest, and asking for CUDA without it raises.
+the FLOP count does not depend on the impl or dtype, the zoo builds every
+row (the baselines at their published configurations, on the meta device
+here), a baseline row runs through its module forward with its LSTMs'
+FLOPs counted, and asking for CUDA without it raises.
 Times here are the CPU's and mean nothing; the card's are in PERF.md.
 """
 
@@ -17,6 +19,7 @@ from sudo_rm_rf_tpu_torch.utils import benchmark
 
 TOY = dict(out_channels=16, in_channels=32, num_blocks=2, upsampling_depth=3,
            enc_kernel_size=21, enc_num_basis=16, num_sources=2)
+TOY_DPRNN = dict(enc_dim=16, feature_dim=8, hidden_dim=8, layer=1, segment_size=10, win_len=16)
 # the keys of a row of sudo-tpu-bench (utils/benchmark.py:221-282), mfu_pct
 # aside (off a known card neither package writes it)
 JAX_ROW_KEYS = {"batch_size", "timelength", "n_params_m", "measure", "path", "dtype",
@@ -33,11 +36,10 @@ JAX_HEADLINE_KEYS = {
 
 @pytest.fixture
 def toy_zoo(monkeypatch):
-    zoo = benchmark.reference_model_zoo()
     toys = {
         "toy": lambda: models.get_model("relu", **TOY),
         "toy_gc": lambda: models.get_model("groupcomm_v2", **TOY, group_size=4),
-        "dprnn": zoo["dprnn"],
+        "dprnn": lambda: models.get_model("dprnn", **TOY_DPRNN),
     }
     monkeypatch.setattr(benchmark, "reference_model_zoo", lambda: toys)
     return toys
@@ -85,8 +87,18 @@ def test_bench_flops_do_not_depend_on_the_impl(capsys, toy_zoo):
 def test_bench_zoo_and_unknown_names(capsys, toy_zoo):
     assert bench_cli.main(["--models", "absent", "--device", "cpu"]) == 1
     assert "unknown model absent" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="item 9"):
-        bench_cli.main(["--models", "dprnn", "--device", "cpu"])
+    # a baseline row: its module forward, in fp32 and bf16, and a backward
+    # row; the FLOPs hold its LSTMs (8 H (I + H) T a direction and layer)
+    rows = _rows(capsys, ["--models", "dprnn", "--batch_sizes", "2", "--dtype", "bfloat16"])
+    rows += _rows(capsys, ["--models", "dprnn", "--batch_sizes", "2", "--measures",
+                           "backward"])
+    assert [(r["model"], r["dtype"], r["measure"]) for r in rows] == [
+        ("dprnn", "bfloat16", "forward"), ("dprnn", "float32", "backward")]
+    # 0.1 s: 99 frames in 22 chunks of 10; the intra and the inter LSTM each
+    # run 22 x 10 steps a direction at batch 2, both directions
+    lstm_gflops = 2 * (8 * 8 * (8 + 8)) * (2 * 2 * 22 * 10) / 1e9
+    assert rows[0]["gflops_per_batch"] > lstm_gflops
+    assert rows[1]["gflops_per_batch"] == pytest.approx(3 * rows[0]["gflops_per_batch"])
 
 
 def test_reference_zoo_builds_the_sudormrf_rows():
@@ -101,9 +113,12 @@ def test_reference_zoo_builds_the_sudormrf_rows():
         model = zoo[name]()
         assert (model.variant, model.n_heads, model.att_dims, model.num_blocks) == (
             name[-2:], 4, 256, 16)
-    for name in sorted(set(zoo) - built):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-            zoo[name]()
+    # and the baselines, at their published configurations (on the meta
+    # device: Demucs holds 415 M params)
+    with torch.device("meta"):
+        counts = {name: benchmark.count_params(zoo[name]()) for name in set(zoo) - built}
+    assert counts == {"convtasnet": 5_050_545, "dprnn": 2_633_729, "demucs": 415_090_082,
+                      "tdcn": 8_628_038, "sepformer": 25_679_361}
 
 
 def test_bench_profile_dir_writes_a_trace(tmp_path, capsys, toy_zoo):

@@ -223,8 +223,8 @@ def test_evaluate_writes_the_per_example_pickle(tmp_path, capsys, whamr_root):
 @pytest.mark.parametrize("extra,error,match", [
     (["--full_length", "--full_length_mode", "seq_parallel"], NotImplementedError, "item 13"),
     (["--dataset", "AUGMENTED"], SystemExit, "--dataset_paths is required"),
-    (["--model_type", "dprnn"], NotImplementedError, "item 9"),
-    (["--model_type", "sepformer"], NotImplementedError, "item 9"),
+    (["--model_type", "dprnn"], ValueError, "ROADMAP queue 3"),
+    (["--model_type", "sepformer"], ValueError, "ROADMAP queue 3"),
     (["--device", "cuda"], RuntimeError, "no CUDA"),
 ])
 def test_evaluate_raises_for_what_waits(tmp_path, whamr_root, monkeypatch, extra, error, match):

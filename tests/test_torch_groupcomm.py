@@ -395,11 +395,13 @@ def test_config_builds_groupcomm_and_waiting_types_raise():
                         in_audio_channels=2, block_impl="xla").build()
     assert (model.group_size, model.in_audio_channels) == (4, 2)
     assert model.sm[0].block_impl == "xla" and model.decoder.weight.shape == (96, 4, 21)
-    # the baselines wait (ROADMAP queue 1, item 9); remat_blocks is taken
-    with pytest.raises(NotImplementedError, match="item 9"):
-        models.get_model("dprnn")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        models.get_model("sepformer")
+    # the config holds the SuDoRM-RF hparams only: it refuses the baselines,
+    # as the JAX package's cannot build them (ROADMAP queue 3); remat_blocks
+    # is taken
+    with pytest.raises(ValueError, match="ROADMAP queue 3"):
+        ModelConfig(model_type="dprnn").build()
+    with pytest.raises(ValueError, match="ROADMAP queue 3"):
+        ModelConfig(model_type="sepformer").build()
     assert models.get_model("groupcomm_v2", **HP, remat_blocks=True).remat_blocks
     with pytest.raises(KeyError):
         models.get_model("rele")

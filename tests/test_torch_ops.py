@@ -105,7 +105,8 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
     ``sudo-torch-export`` and evaluates it on a hierarchical corpus
     (``--dataset AUGMENTED``), serves in bf16 and int8 and runs
     ``sudo-torch-bench`` and the headline bench on the CPU, builds all eight
-    SuDoRM-RF model types (the baselines raise, naming their ROADMAP item),
+    SuDoRM-RF model types and a toy DPRNN (forward and one ``radam_cosine``
+    step; the CLIs refuse the baselines, naming ROADMAP queue 3),
     separates with ``--model_type causal``, pushes a hop through a
     ``StreamingSeparator`` and runs the streaming bench, without importing
     JAX, any module of the JAX package, joblib, msgpack or flax; asking for
@@ -209,11 +210,23 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
             model = models.get_model(name, **zoo_hp, **extra)
             with torch.no_grad():
                 assert model(x).shape == (1, 2, 100), name
-        for name in ("convtasnet", "dprnn", "demucs", "tdcn", "residual_tdcn", "sepformer"):
+        # a baseline builds, runs and takes one radam_cosine step; the CLIs
+        # refuse every baseline, as the JAX package's cannot build one
+        from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig, draw_remix
+        dprnn = models.get_model("dprnn", enc_dim=16, feature_dim=8, hidden_dim=8, layer=1,
+                                 segment_size=10)
+        with torch.no_grad():
+            assert dprnn(x).shape == (1, 2, 100)
+        tr = Trainer(dprnn, TrainerConfig(optimizer="radam_cosine", warmup_steps=1,
+                                          total_steps=4, loss_clamp=0.0))
+        _, m = tr.train_step(tr.init_state(), torch.randn(2, 2, 100),
+                             draw_remix(torch.Generator().manual_seed(0), 2, 2))
+        assert np.isfinite(float(m["loss"]))
+        for name in models.BASELINES:
             try:
-                models.get_model(name)
-            except NotImplementedError as e:
-                assert "ROADMAP queue 1, item 9" in str(e), e
+                models.check_cli_model_type(name)
+            except ValueError as e:
+                assert "ROADMAP queue 3" in str(e), e
             else:
                 raise SystemExit(f"{name} did not raise")
         causal = models.get_model("causal", **hp)
