@@ -129,12 +129,27 @@
    (its host-bound step would take ~9 min here) for one epoch of 1001 1.5 s
    files at batch 1 (the JAX trainer's warmup of 1000 updates needs more
    steps than that) and a resumed second, its counts checked.
-18. Print JSON lines of the serving, training, evaluation, recipe,
-   augmented, reduced-precision, bench, causal, zoo and baseline results,
-   each phase's seconds, and one line of kernel results (K1 with an fp32
-   and with a bf16 pyramid; the first with the AUGMENTED evaluation's
-   launches, and its 0 launches on the causal, v1, attentive and baseline
-   paths), then
+18. MUSDB at the widths of ``docs/runs/musdb_synth/hparams.json`` (U16/512,
+   out 256, 4 stem slots, bs8, 4 s at 8 kHz, the xla blocks in bf16, clamp
+   30): a synthetic corpus of 8 train and 8 test tracks of 30 s; the init's
+   loss on the first batch for seeds 0-7 (the clamp sits inside their
+   spread); one ``sudo-torch-train --train MUSDB --val MUSDB`` epoch of 8
+   steps at ``--seed 1`` (losses, val SI-SDRi, the epoch's times, bytes
+   copied a step, peak, 0 K1 launches), an fp32 rerun and a bf16-upload run
+   (half the bytes; the first two steps, the mean loss and val SI-SDRi
+   within rtol = atol = 0.05; every step's gap printed beside the rerun's);
+   one step card vs CPU at the checkpoint and the bf16 step's time and
+   profile; the test split packed into shards (bit-identical items, ms an
+   item, the same step losses through a ``device_put_fn`` loader);
+   ``sudo-torch-separate --num_sources 4`` of a 30 s track (16 K1 launches
+   a batch, the kernel forward >= 80 dB from ``fma``, each stem's SI-SDRi);
+   a preprocessed folder of the port's ``prep`` read without joblib.
+19. Print JSON lines of the serving, training, evaluation, recipe,
+   augmented, reduced-precision, bench, causal, zoo, baseline and MUSDB
+   results, each phase's seconds, and one line of kernel results (K1 with
+   an fp32 and with a bf16 pyramid; the first with the AUGMENTED evaluation's
+   and the MUSDB separation's launches, and its 0 launches on the causal,
+   v1, attentive, baseline and MUSDB training paths), then
    ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
    exits non-zero. ``--only PHASE ...`` runs some phases (a rehearsal on
    the card, without the kernels and ok lines).
@@ -234,6 +249,30 @@ F64_SHAPES = [(BATCH, 256, 512, 3200, 5), U36_BLOCK]
 AUGMENTED_CUT = dict(train_speakers=12, utts=8, val_speakers=4, test_speakers=4, val_utts=6,
                      n_train=64, n_eval=16, batch_size=8, seconds=4.0)
 AUGMENTED_TRAIN_ARGV = ("--block_impl", "xla", "--compute_dtype", "bfloat16")
+# the MUSDB phase: docs/runs/musdb_synth/hparams.json (Improved U16/512 at
+# out 256 with 4 stem slots, bs8, 4 s at 8 kHz, Adam 1e-3, clip 5, clamp 30,
+# stepped decay at patience 10, bf16) with the xla blocks (what JAX's
+# auto-tuner picked for that run) and one step a dispatch; block_impl auto,
+# chain_steps 25 and device_data are not ported (ROADMAP queue 1, item 11).
+# The synthetic corpus of 30 s tracks is cut from 60 train and 12 test tracks
+# to 8 and 8 (a val batch of 8 needs 8 tracks: one segment a track, and the
+# loader drops a partial batch), n_train 2000 -> 64, n_val 24 -> 8. The
+# bf16-upload run's losses must stay within JAX's own bounds of the fp32
+# upload's (tests/test_trainer.py:414-440), which JAX's test applies to two
+# steps: here to the first two steps, the epoch's mean loss and its val
+# SI-SDRi. Step by step the two runs part further (the rounded batch moves
+# each update, and training amplifies it), so every step's gap is printed
+# beside that of an fp32 rerun, the card's own run-to-run spread.
+MUSDB = dict(FLAGSHIP, num_sources=4)
+MUSDB_CUT = dict(train_tracks=8, test_tracks=8, track_seconds=30.0, n_train=64, n_val=8,
+                 batch_size=8, seconds=4.0)
+MUSDB_TRAIN_ARGV = ("--block_impl", "xla", "--compute_dtype", "bfloat16", "-lr", "1e-3",
+                    "--clip_grad_norm", "5", "--patience", "10")
+MUSDB_LOSS_CLAMP = 30.0
+MUSDB_SEED = 1
+MUSDB_PROBE_SEEDS = 8
+UPLOAD_RTOL = UPLOAD_ATOL = 0.05
+MUSDB_CPU_BATCH = 2
 # reduced-precision serving: the bench's gates (bench.py) and the batches
 # timed; an int8 output under INT8_MIN_DB is a fault, not a miss of the gate
 BF16_GATE_DB, INT8_GATE_DB, INT8_MIN_DB = 35.0, 25.0, 15.0
@@ -655,13 +694,14 @@ def serve_phase(torch, np, tmp: str, model_type: str, hp: dict, extra_argv=(),
 
 def step_checks(torch, np, model_type: str, hp: dict, weights: dict, batch, device: str,
                 variants, reps: int = STEP_REPS, recipe=None, label: str = "U16/512",
-                **trainer_cfg) -> dict:
+                cpu_batch=None, **trainer_cfg) -> dict:
     """One step of ``weights`` on the card and on the CPU from the same
     batch and draws (loss and grad norm within MAX_CARD_CPU_REL), then the
     median step time, peak memory and profile of each (block_impl,
     compute_dtype) in ``variants``. ``recipe`` (``train.experiment.Recipe``)
     gives the draws, batch preparation and loss; by default the WHAM remix
-    of a (B, 2, T) source batch."""
+    of a (B, 2, T) source batch. ``cpu_batch`` (default ``batch``) is the
+    batch of the card-vs-CPU step."""
     from sudo_rm_rf_tpu_torch import models
     from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig, draw_remix
 
@@ -669,13 +709,14 @@ def step_checks(torch, np, model_type: str, hp: dict, weights: dict, batch, devi
     bs = (batch[0] if isinstance(batch, tuple) else batch).shape[0]
     draw = recipe.draw if recipe else (lambda g, _: draw_remix(g, bs, 2))
     fns = dict(loss_fn=recipe.loss_fn, prepare_batch=recipe.prepare) if recipe else {}
-    draws = draw(torch.Generator().manual_seed(7), batch)
+    cpu_batch = batch if cpu_batch is None else cpu_batch
+    draws = draw(torch.Generator().manual_seed(7), cpu_batch)
     metrics = {}
     for dev in (device, "cpu"):
         model = models.get_model(model_type, **hp, block_impl="fma", device=dev)
         model.load_state_dict(weights)
         tr = Trainer(model, TrainerConfig(**trainer_cfg), **fns)
-        _, m = tr.train_step(tr.init_state(), batch, draws)
+        _, m = tr.train_step(tr.init_state(), cpu_batch, draws)
         metrics[dev] = {k: float(v) for k, v in m.items()}
         del model, tr
     rel = {k: abs(metrics[device][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
@@ -1254,6 +1295,275 @@ def augmented_phase(torch, np, tmp: str, hp: dict, device: str = "cuda",
                 sisdri_xla=float(np.mean(plain)), sisdri_kernel_vs_xla_db=diff,
                 export_s=export_s, separate_s=sep_s, separate_launches=sep_launches,
                 separate_identical=identical, libraries_present=libs, phase_s=phase_s)
+
+
+def _musdb_epoch(out: str) -> dict:
+    """The numbers of ``sudo-torch-train``'s MUSDB epoch line."""
+    m = re.search(r"^epoch 1/1 tr_loss=(\S+) val_SISDRi=(\S+) \((\S+)s: data=(\S+) "
+                  r"disp=(\S+) val=(\S+) ckpt=(\S+?)(?: h2d=(\d+) B/step)?\)$", out, re.M)
+    if m is None:
+        raise RuntimeError(f"no MUSDB epoch line in {out[-2000:]}")
+    keys = ("tr_loss", "val_sisdri", "epoch_s", "data_s", "disp_s", "val_s", "ckpt_s")
+    row = {k: float(v) for k, v in zip(keys, m.groups())}
+    row["h2d_bytes_per_step"] = int(m.group(8)) if m.group(8) else 0
+    return row
+
+
+def _wsj0mix_layout(np, root: str, n: int = 2, seconds: float = 0.5) -> str:
+    """A tiny wsj0-2mix layout ``root/tt/{mix,s1,s2}/*.wav`` of int16 noise."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        s = [rng.integers(-8000, 8000, int(seconds * FS)).astype(np.int16) for _ in range(2)]
+        for d, wav in (("s1", s[0]), ("s2", s[1]), ("mix", s[0] // 2 + s[1] // 2)):
+            os.makedirs(os.path.join(root, "tt", d), exist_ok=True)
+            wavfile.write(os.path.join(root, "tt", d, f"01{i}a0101_0.5_20{i}c0102_-0.5.wav"),
+                          FS, wav)
+    return root
+
+
+def musdb_init_losses(torch, np, hp: dict, batch, device: str, seeds) -> dict:
+    """The fixed-assignment loss of the port's init (``--seed``) on one train
+    batch, by seed, through the training forward (xla blocks, bf16), and the
+    clamp it must pass for the step to have a gradient."""
+    from sudo_rm_rf_tpu_torch.config import DataConfig, ExperimentConfig, ModelConfig
+    from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig
+    from sudo_rm_rf_tpu_torch.train.experiment import make_recipe
+
+    recipe = make_recipe(ExperimentConfig(model=ModelConfig(num_sources=hp["num_sources"]),
+                                          data=DataConfig(train=("MUSDB",))))
+    kw = {k: v for k, v in hp.items() if k != "group_size"}
+    losses = {}
+    for seed in seeds:
+        model = ModelConfig(model_type="relu", block_impl="xla", **kw).build(
+            device=device, generator=torch.Generator().manual_seed(seed))
+        tr = Trainer(model, TrainerConfig(compute_dtype="bfloat16"), loss_fn=recipe.loss_fn,
+                     prepare_batch=recipe.prepare)
+        with torch.no_grad():
+            mixture, targets = recipe.prepare(None, tr.upload(batch))
+            losses[seed] = float(recipe.loss_fn(tr.forward(model, mixture, tr.compute_dtype),
+                                                targets))
+        del model, tr
+    return losses
+
+
+def musdb_phase(torch, np, tmp: str, hp: dict = MUSDB, device: str = "cuda",
+                cut: dict = MUSDB_CUT, reps: int = STEP_REPS) -> dict:
+    """The MUSDB path: a synthetic 4-stem corpus, one ``sudo-torch-train
+    --train MUSDB --val MUSDB`` epoch (fixed-assignment SI-SDR, fixed-order
+    val SI-SDRi; 0 K1 launches), one step card vs CPU at its checkpoint and
+    the bf16 xla step's time; the same epoch with ``--upload_dtype
+    bfloat16`` (losses within 0.05, half the bytes copied a step); the test
+    split packed into shards (bit-identical items, the same step losses
+    through a loader with a ``device_put_fn``); ``sudo-torch-separate
+    --num_sources 4`` of a 30 s test track from the checkpoint through K1 (16
+    launches a batch, >= 80 dB from the fma forward); a preprocessed folder
+    of the port's ``prep`` read without joblib."""
+    import importlib.util
+
+    from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.cli.separate import main as separate_main
+    from sudo_rm_rf_tpu_torch.cli.train import main as train_main
+    from sudo_rm_rf_tpu_torch.config import DataConfig, ExperimentConfig, ModelConfig
+    from sudo_rm_rf_tpu_torch.data.base import read_wav
+    from sudo_rm_rf_tpu_torch.data.musdb import STEMS, MusdbDataset
+    from sudo_rm_rf_tpu_torch.data.preprocessed import PreprocessedDataset
+    from sudo_rm_rf_tpu_torch.data.shards import ShardedDataset, pack_dataset
+    from sudo_rm_rf_tpu_torch.data.synthetic import write_musdb_corpus
+    from sudo_rm_rf_tpu_torch.models import load_checkpoint_model
+    from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+    from sudo_rm_rf_tpu_torch.prep.hierarchical import convert_wsj0mix_to_universal
+    from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig
+    from sudo_rm_rf_tpu_torch.train.experiment import make_recipe
+
+    t_phase = time.perf_counter()
+    bs, secs = cut["batch_size"], cut["seconds"]
+    t0 = time.perf_counter()
+    root = write_musdb_corpus(os.path.join(tmp, "musdb"), cut["train_tracks"],
+                              cut["test_tracks"], fs=FS, seconds=cut["track_seconds"], seed=0)
+    print(f"musdb: corpus of {cut['train_tracks']} train and {cut['test_tracks']} test tracks "
+          f"of {cut['track_seconds']} s (the JAX run: 60 and 12) in "
+          f"{time.perf_counter() - t0:.1f} s; n_train {cut['n_train']}, n_val {cut['n_val']} "
+          f"(the JAX run: 2000, 24)")
+    # the init's loss on the first train batch, for the seeds up to the one
+    # trained: where it is at the clamp, the clamped loss has no gradient
+    train_set = MusdbDataset(root_dirpath=root, split="train", sample_rate=FS, n_channels=1,
+                             timelength=secs, augment=True, n_samples=cut["n_train"])
+    first = next(iter(train_set.get_generator(batch_size=bs, shuffle=True, num_workers=2)))
+    init_losses = musdb_init_losses(torch, np, hp, first, device,
+                                    range(max(MUSDB_SEED + 1, MUSDB_PROBE_SEEDS)))
+    print(f"musdb init loss on the first train batch by --seed (clamp {MUSDB_LOSS_CLAMP}): "
+          + ", ".join(f"{k}: {v:.3f}" for k, v in init_losses.items())
+          + f"; training at --seed {MUSDB_SEED}")
+    if MUSDB_LOSS_CLAMP > 0 and init_losses[MUSDB_SEED] >= MUSDB_LOSS_CLAMP:
+        raise RuntimeError(f"--seed {MUSDB_SEED}: the init's loss is at the clamp, so the "
+                           "run would take no gradient")
+    logs, ckpts = os.path.join(tmp, "logs"), os.path.join(tmp, "ckpt")
+    argv = ["--train", "MUSDB", "--val", "MUSDB", "--musdb_root", root, "--seed",
+            str(MUSDB_SEED),
+            "--n_train", str(cut["n_train"]), "--n_val", str(cut["n_val"]), "-bs", str(bs),
+            "--audio_timelength", str(secs), "-fs", str(FS), "--n_epochs", "1",
+            "--n_jobs", "4", "--save_checkpoint_every", "1", "-elp", logs, "-clp", ckpts,
+            "--device", device, "--loss_clamp", str(MUSDB_LOSS_CLAMP), *MUSDB_TRAIN_ARGV,
+            *hp_argv(hp)]
+    runs = {}
+    for tag, upload in (("float32", "float32"), ("float32_again", "float32"),
+                        ("bfloat16", "bfloat16")):
+        name = f"musdb_{tag}"
+        # the training path, with the kernel counts at 0 just before it
+        U.fused_uconv_block.launches = U.fused_uconv_block.launches_bf16_pyramid = 0
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run_cli(train_main, argv + ["--experiment_name", name, "--upload_dtype", upload])
+        row = dict(_musdb_epoch(out), cli_s=time.perf_counter() - t0,
+                   k1_launches=U.fused_uconv_block.launches
+                   + U.fused_uconv_block.launches_bf16_pyramid)
+        if device == "cuda":
+            row["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        row["step_losses"] = np.load(os.path.join(logs, name, "tr_loss", "epoch_1.npy")).tolist()
+        runs[tag] = row
+        print(f"musdb train ({tag}: --upload_dtype {upload}): {len(row['step_losses'])} steps, "
+              f"losses {', '.join(f'{v:.4f}' for v in row['step_losses'])}; val_SISDRi "
+              f"{row['val_sisdri']:.3f} dB; epoch {row['epoch_s']:.1f} s (data "
+              f"{row['data_s']:.1f}, disp {row['disp_s']:.1f}, val {row['val_s']:.1f}, ckpt "
+              f"{row['ckpt_s']:.1f}), CLI {row['cli_s']:.1f} s; host-to-device "
+              f"{row['h2d_bytes_per_step']} B a step; peak {row.get('peak_mib', 0):.0f} MiB; "
+              f"K1 launches {row['k1_launches']}")
+        if row["k1_launches"]:
+            raise RuntimeError(f"the MUSDB training path launched K1 {row['k1_launches']} times")
+        if len(row["step_losses"]) != cut["n_train"] // bs or not np.isfinite(
+                row["step_losses"] + [row["val_sisdri"]]).all():
+            raise RuntimeError(f"MUSDB run: {row}")
+    f32, b16 = runs["float32"], runs["bfloat16"]
+    gaps = {tag: np.abs(np.subtract(runs[tag]["step_losses"], f32["step_losses"])).tolist()
+            for tag in ("float32_again", "bfloat16")}
+    gap = max(gaps["bfloat16"])
+    print(f"musdb step-loss gaps to the float32 run, by step: the float32 rerun "
+          f"{', '.join(f'{v:.2e}' for v in gaps['float32_again'])}; bfloat16 uploads "
+          f"{', '.join(f'{v:.2e}' for v in gaps['bfloat16'])}; epoch mean loss "
+          f"{b16['tr_loss']:.3f} against {f32['tr_loss']:.3f}, val SISDRi "
+          f"{b16['val_sisdri']:.3f} against {f32['val_sisdri']:.3f} dB (rtol = atol = "
+          f"{UPLOAD_RTOL} on the first two steps and on these); {b16['h2d_bytes_per_step']} "
+          f"against {f32['h2d_bytes_per_step']} B copied a step")
+    np.testing.assert_allclose(
+        b16["step_losses"][:2] + [b16["tr_loss"], b16["val_sisdri"]],
+        f32["step_losses"][:2] + [f32["tr_loss"], f32["val_sisdri"]],
+        rtol=UPLOAD_RTOL, atol=UPLOAD_ATOL)
+    if device == "cuda" and not (
+            f32["h2d_bytes_per_step"] > 0
+            and 2 * b16["h2d_bytes_per_step"] == f32["h2d_bytes_per_step"]):
+        raise RuntimeError("the bf16 upload did not copy half the bytes of the fp32 one")
+
+    # one step card vs CPU at the epoch's checkpoint, and the step's time
+    ckpt = os.path.join(ckpts, "musdb_float32", "relu_epoch_1")
+    weights = checkpoint_weights("relu", hp, ckpt)
+    recipe = make_recipe(ExperimentConfig(model=ModelConfig(num_sources=hp["num_sources"]),
+                                          data=DataConfig(train=("MUSDB",))))
+    batch = first
+    checks = step_checks(torch, np, "relu", hp, weights, batch, device,
+                         [("xla", "bfloat16")], reps, recipe=recipe, label="MUSDB U16/512",
+                         cpu_batch=batch[:MUSDB_CPU_BATCH], loss_clamp=MUSDB_LOSS_CLAMP)
+
+    # the test split's fixed items, packed into shards
+    test_set = MusdbDataset(root_dirpath=root, split="test", sample_rate=FS, n_channels=1,
+                            timelength=secs, n_samples=cut["n_val"])
+    t0 = time.perf_counter()
+    index = pack_dataset(test_set, os.path.join(tmp, "shards"), name="musdb_test")
+    pack_s = time.perf_counter() - t0
+    packed = ShardedDataset(index)
+    item_ms = {}
+    for kind, ds in (("direct", test_set), ("sharded", packed)):
+        t0 = time.perf_counter()
+        items = [ds[i] for i in range(len(ds))]
+        item_ms[kind] = 1e3 * (time.perf_counter() - t0) / len(ds)
+        if kind == "direct":
+            direct = items
+    if len(packed) != len(test_set) or not all(
+            a[0].dtype == b.dtype and np.array_equal(a[0], b) for a, b in zip(items, direct)):
+        raise RuntimeError("the sharded items differ from the direct ones")
+    loss_runs = {}
+    for kind, ds in (("direct", test_set), ("sharded", packed)):
+        model = models.get_model("relu", **hp, block_impl="xla", device=device)
+        model.load_state_dict(weights)
+        tr = Trainer(model, TrainerConfig(compute_dtype="bfloat16"), loss_fn=recipe.loss_fn,
+                     prepare_batch=recipe.prepare)
+        state = tr.init_state()
+        put = (lambda b: tr.upload(b[0])) if kind == "sharded" else None
+        gen = ds.get_generator(batch_size=bs // 2, shuffle=False, num_workers=2,
+                               device_put_fn=put)
+        loss_runs[kind] = [float(tr.train_step(state, b, None)[1]["loss"]) for b in gen]
+    print(f"musdb shards: {len(packed)} test items packed in {pack_s:.2f} s, bit-identical to "
+          f"the direct items; {item_ms['direct']:.3f} ms an item direct (4 wav reads and "
+          f"decodes), {item_ms['sharded']:.3f} ms sharded (one pread); step losses direct "
+          f"{loss_runs['direct']}, sharded with a device_put_fn {loss_runs['sharded']}")
+    # the same batches from the same weights, up to the card's run-to-run
+    # spread (cuDNN's bf16 convolutions: ~1e-5 of a loss)
+    np.testing.assert_allclose(loss_runs["sharded"], loss_runs["direct"], rtol=MAX_CARD_CPU_REL,
+                               atol=0)
+    packed.close()
+
+    # the checkpoint through sudo-torch-separate: four stems of a 30 s track
+    track = os.path.join(root, "test", "track000")
+    n = int(cut["track_seconds"] * FS)
+    chunk = int(CHUNK_SECONDS * FS)
+    batches = n_forward_batches(n, chunk, bs)
+    sep_dir = os.path.join(tmp, "sep_musdb")
+    U.fused_uconv_block.launches = 0
+    t0 = time.perf_counter()
+    run_cli(separate_main, ["--checkpoint", ckpt, "--input", os.path.join(track, "mixture.wav"),
+                            "--out_dir", sep_dir, "--device", device, "--num_sources",
+                            str(hp["num_sources"]), "--batch_chunks", str(bs), "-fs", str(FS),
+                            "--chunk_seconds", str(CHUNK_SECONDS), *hp_argv(hp)])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    sep_s = time.perf_counter() - t0
+    sep_launches = U.fused_uconv_block.launches
+    want = hp["num_blocks"] * batches if device == "cuda" else 0
+    if sep_launches != want:
+        raise RuntimeError(f"separating the MUSDB track: {sep_launches} K1 launches, want {want}")
+    mix = read_wav(os.path.join(track, "mixture.wav"))[1]
+    ests = [read_wav(os.path.join(sep_dir, f"mixture_s{s}.wav"))[1]
+            for s in range(1, hp["num_sources"] + 1)]
+    if not all(e.shape == (n,) and np.isfinite(e).all() for e in ests):
+        raise RuntimeError("bad separated stems")
+    refs = [read_wav(os.path.join(track, f"{stem}.wav"))[1] for stem in STEMS]
+    per_stem = [si_sdr_db(np, e, r) - si_sdr_db(np, mix, r) for e, r in zip(ests, refs)]
+    # the kernel forward against the fma forward at the same weights
+    model = load_checkpoint_model("relu", hp, ckpt, device)
+    x = torch.from_numpy(np.stack([mix[i * chunk // 2:i * chunk // 2 + chunk]
+                                   for i in range(bs)])[:, None]).to(device)
+    ker = improved_forward_fast(model, x, impl="kernel")
+    ref = improved_forward_fast(model, x, impl="fma")
+    fid = fidelity_db(np, ref.double().cpu().numpy(), ker.double().cpu().numpy())
+    print(f"musdb separate: a {cut['track_seconds']} s track in {batches} batches of {bs}, "
+          f"{sep_launches} K1 launches (counted), {sep_s:.2f} s wall; fixed-order SI-SDRi of "
+          f"the 4 written stems {dict(zip(STEMS, (round(v, 3) for v in per_stem)))}, mean "
+          f"{float(np.mean(per_stem)):.3f} dB; bs{bs} kernel forward vs fma {fid:.2f} dB")
+    if not fid >= MIN_FIDELITY_DB:
+        raise RuntimeError(f"fidelity {fid:.2f} dB < {MIN_FIDELITY_DB} dB")
+
+    # a preprocessed folder written by the port's prep, read without joblib
+    pre_root = convert_wsj0mix_to_universal(_wsj0mix_layout(np, os.path.join(tmp, "wsj")),
+                                            os.path.join(tmp, "pre"), 0.5)
+    pre = PreprocessedDataset(root_dirpath=os.path.join(pre_root, "tt"),
+                              return_items=["mixture_wav", "clean_wav_0", "clean_wav_1", "wav"])
+    shapes = [tuple(a.shape) for a in pre[0]]
+    joblib_here = importlib.util.find_spec("joblib") is not None
+    print(f"musdb preprocessed: {len(pre)} folders, item shapes {shapes}; joblib installed "
+          f"here: {joblib_here}, imported: {'joblib' in sys.modules}")
+    if len(pre) != 2 or shapes != [(int(0.5 * FS),)] * 4 or "joblib" in sys.modules:
+        raise RuntimeError("the preprocessed folder did not read back")
+    phase_s = time.perf_counter() - t_phase
+    print(f"musdb phase: {phase_s:.1f} s")
+    return dict(init_losses=init_losses, seed=MUSDB_SEED, train=f32, train_bf16_upload=b16,
+                upload_loss_gap=gap, **checks,
+                shards=dict(pack_s=pack_s, item_ms=item_ms, step_losses=loss_runs),
+                separate=dict(launches=sep_launches, forward_batches=batches, s=sep_s,
+                              sisdri_by_stem=dict(zip(STEMS, per_stem)), fidelity_db=fid),
+                preprocessed_shapes=shapes, joblib_installed=joblib_here, phase_s=phase_s)
 
 
 def _snr_db(torch, ref, est) -> float:
@@ -1970,7 +2280,7 @@ def baselines_phase(torch, np, tmp: str, device: str = "cuda", zoo: dict = BASEL
 
 
 PHASES = ("k1", "k1_bf16", "float64", "serve", "train", "evaluate", "recipes", "augmented",
-          "bf16", "int8", "bench", "causal", "zoo", "zoo_cli", "baselines")
+          "bf16", "int8", "bench", "causal", "zoo", "zoo_cli", "baselines", "musdb")
 
 
 def main(argv=None) -> int:
@@ -2144,6 +2454,15 @@ def main(argv=None) -> int:
     phase("zoo", zoo)
     phase("zoo_cli", zoo_cli)
     phase("baselines", baselines)
+
+    # 18. MUSDB: train, bf16 uploads, shards, separate the 4-stem checkpoint
+    def musdb():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = musdb_phase(torch, np, tmp)
+        print(json.dumps({"musdb": out}))
+        return out
+
+    phase("musdb", musdb)
     print(f"phase seconds: {json.dumps(seconds)}")
     if set(args.only) != set(PHASES):
         print(f"chip_smoke: ran {args.only} only; no kernels line and no ok line")
@@ -2180,6 +2499,9 @@ def main(argv=None) -> int:
         "launches_zoo_cli": sum(r["k1_launches"] for r in res["zoo_cli"].values()),
         # nor do the baselines, their bench rows or the radam_cosine CLI run
         "launches_baseline_paths": sum(r["k1_launches"] for r in res["baselines"].values()),
+        # MUSDB trains through the xla blocks and serves its 4 stems through K1
+        "launches_musdb_training_path": res["musdb"]["train"]["k1_launches"],
+        "launches_musdb_separate": res["musdb"]["separate"]["launches"],
         **flagship, "gc_shape": k1["groupcomm"], "u36_shape": k1["u36"],
         "float64_check": res["float64"],
     }, {

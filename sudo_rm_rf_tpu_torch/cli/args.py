@@ -68,20 +68,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "batches beyond device memory)")
     p.add_argument("--chain_steps", type=int, default=1,
                    help="train steps per dispatch; the port takes 1 only "
-                        "(chained steps are ROADMAP queue 14)")
+                        "(chained steps are ROADMAP queue 1, item 11)")
     p.add_argument("--upload_dtype", type=str, default=None,
                    choices=[None, "bfloat16", "float32"],
-                   help="host->device batch transfer dtype (not ported: "
-                        "ROADMAP queue 1, item 5)")
+                   help="host->device dtype of the train batches: cast on "
+                        "the host, back to fp32 on the device (bfloat16 "
+                        "halves the bytes copied)")
     p.add_argument("--max_inflight", type=int, default=0,
                    help="max train dispatches in flight; the port takes 0 "
-                        "only, no bound (ROADMAP queue 14)")
+                        "only, no bound (ROADMAP queue 1, item 11)")
     p.add_argument("--early_stop_patience", type=int, default=0,
                    help="stop after N epochs without a new best primary "
                         "val metric (0 = run all epochs)")
     p.add_argument("--device_data", action="store_true",
                    help="device-resident training data (not ported: "
-                        "ROADMAP queue 14)")
+                        "ROADMAP queue 1, item 11)")
     p.add_argument("-fs", type=int, default=8000)
     p.add_argument("--seed", type=int, default=0)
     # bookkeeping
@@ -112,7 +113,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--block_impl", type=str, default="fma",
                    choices=["xla", "fma", "kernel", "auto"],
                    help="U-ConvBlock form; 'kernel' is forward-only and "
-                        "'auto' is not ported (ROADMAP queue 14)")
+                        "'auto' is not ported (ROADMAP queue 1, item 11)")
     p.add_argument("--remat_blocks", action="store_true",
                    help="recompute block activations in the backward (model "
                         "types relu and groupcomm_v2): less memory for about "

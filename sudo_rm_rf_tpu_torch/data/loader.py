@@ -5,7 +5,9 @@ A numpy-native loader: deterministic seeded shuffling per epoch, drop_last
 batching, a thread pool for IO-bound wav reads, and a bounded prefetch
 queue. With the same seed it yields the JAX package's batches in the same
 order. A ``device_put_fn`` hook can move each batch to the device in the
-producer thread, overlapping the copy with the next batch's disk reads.
+producer thread, overlapping the copy with the next batch's disk reads. An
+exception in the producer thread is raised by the iterator (the JAX
+package's loader would wait for a batch that never comes).
 """
 
 from __future__ import annotations
@@ -77,15 +79,19 @@ class DataLoader:
         stop = threading.Event()
 
         def produce():
-            with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-                for idxs in batches:
-                    if stop.is_set():
-                        return
-                    items = list(pool.map(self.dataset.__getitem__, idxs))
-                    batch = self._collate(items)
-                    if self.device_put_fn is not None:
-                        batch = self.device_put_fn(batch)
-                    out_q.put(batch)
+            try:
+                with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+                    for idxs in batches:
+                        if stop.is_set():
+                            return
+                        items = list(pool.map(self.dataset.__getitem__, idxs))
+                        batch = self._collate(items)
+                        if self.device_put_fn is not None:
+                            batch = self.device_put_fn(batch)
+                        out_q.put(batch)
+            except Exception as exc:  # handed to the consumer, which raises it
+                out_q.put(_Failure(exc))
+                return
             out_q.put(_END)
 
         worker = threading.Thread(target=produce, daemon=True)
@@ -95,6 +101,8 @@ class DataLoader:
                 batch = out_q.get()
                 if batch is _END:
                     return
+                if isinstance(batch, _Failure):
+                    raise batch.exc
                 yield batch
         finally:
             stop.set()
@@ -107,3 +115,10 @@ class DataLoader:
 
 
 _END = object()
+
+
+class _Failure:
+    """An exception of the producer thread, on its way to the consumer."""
+
+    def __init__(self, exc: Exception):
+        self.exc = exc

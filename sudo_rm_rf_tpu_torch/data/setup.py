@@ -1,10 +1,11 @@
 """Dataset dispatch (counterpart of ``sudo_rm_rf_tpu/data/setup.py``): name ->
 loader class, root path, split translation.
 
-The port loads WHAM, WHAMR, FUSS, LIBRI2MIX and the AUGMENTED_* hierarchical
-online-mixing sets; MUSDB raises, naming the ROADMAP item that holds it.
-The FUSS val and test splits become one generator per source count, keyed
-``{split}_{n}_srcs``, each scored with its own stabilized metric.
+The port loads WHAM, WHAMR, FUSS, LIBRI2MIX, MUSDB (its root by rate:
+``musdb8k_root`` at 8 kHz, else ``musdb_root``) and the AUGMENTED_*
+hierarchical online-mixing sets. The FUSS val and test splits become one
+generator per source count, keyed ``{split}_{n}_srcs``, each scored with its
+own stabilized metric.
 """
 
 from __future__ import annotations
@@ -17,16 +18,8 @@ _SPLIT_TRANSLATORS = {
     "WHAM": {"train": "tr", "test": "tt", "val": "cv"},
     "WHAMR": {"train": "tr", "test": "tt", "val": "cv"},
     "FUSS": {"train": "train", "test": "eval", "val": "validation"},
+    "MUSDB": {"train": "train", "test": "test", "val": "test"},
 }
-# datasets of the JAX package the port does not load yet
-_WAITING = ("MUSDB",)
-
-
-def _not_ported(dataset_name: str):
-    if dataset_name.startswith(_WAITING):
-        return NotImplementedError(
-            f"dataset {dataset_name} is not ported yet (ROADMAP queue 1, item 10)")
-    return ValueError(f"Dataset: {dataset_name} is not yet supported!")
 
 
 def create_loader_for_simple_dataset(
@@ -37,6 +30,7 @@ def create_loader_for_simple_dataset(
     min_or_max: str = "min",
     zero_pad: bool = True,
     timelength: float = 4.0,
+    n_channels: int = 1,
     normalize_audio: bool = False,
     n_samples: int = 0,
     min_num_sources: int = 1,
@@ -46,6 +40,7 @@ def create_loader_for_simple_dataset(
     """Build one dataset. ``root_dirpath`` overrides the configured root."""
     from sudo_rm_rf_tpu_torch.data.fuss import FUSSDataset
     from sudo_rm_rf_tpu_torch.data.libri2mix import LibriMixDataset
+    from sudo_rm_rf_tpu_torch.data.musdb import MusdbDataset
     from sudo_rm_rf_tpu_torch.data.wham import WhamDataset
     from sudo_rm_rf_tpu_torch.data.whamr import WhamRDataset
 
@@ -88,7 +83,14 @@ def create_loader_for_simple_dataset(
             root_dirpath=root, task=separation_task, split=split,
             min_or_max=min_or_max, normalize_audio=normalize_audio, **common,
         )
-    raise _not_ported(dataset_name)
+    if dataset_name == "MUSDB":
+        root = root_dirpath or (
+            cfg.paths.musdb8k_root if sample_rate == 8000 else cfg.paths.musdb_root)
+        return MusdbDataset(
+            root_dirpath=root, split=_SPLIT_TRANSLATORS["MUSDB"][data_split],
+            augment=augment, n_channels=n_channels, **common,
+        )
+    raise ValueError(f"Dataset: {dataset_name} is not yet supported!")
 
 
 def create_augmented_loader(hparams: Dict, split: str = "train"):
@@ -168,6 +170,7 @@ def setup(hparams: Dict) -> Dict:
             separation_task=hparams.get("separation_task"),
             data_split=data_split.split("_")[0],
             sample_rate=hparams["fs"],
+            n_channels=hparams.get("n_channels", 1),
             min_or_max=hparams.get("min_or_max", "min"),
             zero_pad=hparams.get("zero_pad_audio", True),
             timelength=hparams["audio_timelength"],

@@ -1,4 +1,4 @@
-"""Small WHAM-, WHAMR!-, FUSS- and hierarchical-layout corpora of synthetic
+"""Small WHAM-, WHAMR!-, FUSS-, MUSDB- and hierarchical-layout corpora of synthetic
 sounds, made from a seed, for running the recipes where the real corpora
 are absent.
 
@@ -11,8 +11,9 @@ The hierarchical corpus (one folder a speaker, one an utterance) is that
 script's own. The WHAMR! corpus convolves each voice with a synthetic room
 response and adds band-limited noise (the port's copy of
 ``scripts/make_synthetic_whamr.py``); the FUSS corpus mixes 1-4 sounds of
-five distinct families (``scripts/make_synthetic_fuss.py``). Imports numpy
-and scipy only.
+five distinct families (``scripts/make_synthetic_fuss.py``); the MUSDB corpus
+holds tracks of four synthetic stems, drums, bass, chords and a voice
+(``scripts/make_synthetic_musdb.py``). Imports numpy and scipy only.
 """
 
 from __future__ import annotations
@@ -285,4 +286,146 @@ def write_fuss_corpus(root: str, n_train: int = 16, n_val: int = 8, n_eval: int 
             lines.append(" ".join([mix_rel] + names))
         with open(os.path.join(root, f"{split}_example_list.txt"), "w") as f:
             f.write("\n".join(lines) + "\n")
+    return root
+
+
+# -- MUSDB ----------------------------------------------------------------------
+
+MUSDB_CHORDS = ([0, 4, 7], [0, 3, 7], [0, 5, 9], [0, 4, 9])  # triads of a chord loop
+MUSDB_GAINS = {"drums": 0.35, "bass": 0.3, "other": 0.25, "vocals": 0.4}
+
+
+def _note_hz(semitones_from_a1: float) -> float:
+    return 55.0 * 2.0 ** (semitones_from_a1 / 12.0)
+
+
+def _adsr(n: int, attack: float, decay: float, fs: int) -> np.ndarray:
+    """A linear attack then an exponential decay, ``n`` samples."""
+    a = min(int(attack * fs), n)
+    e = np.ones(n, np.float32)
+    if a > 0:
+        e[:a] = np.linspace(0, 1, a)
+    e *= np.exp(-np.arange(n) / (decay * fs)).astype(np.float32)
+    return e
+
+
+def synth_drums(rng: np.random.Generator, fs: int, n: int, bpm: float) -> np.ndarray:
+    """A kick (a falling 60 Hz sine burst) on every beat, a snare (a
+    resonant noise burst) on the off-beats and closed hats (differenced
+    noise ticks) at twice the beat rate."""
+    from scipy.signal import lfilter
+
+    beat = int(60.0 / bpm * fs)
+    x = np.zeros(n, np.float32)
+    for i in range(0, n, beat):
+        m = min(int(0.12 * fs), n - i)
+        tt = np.arange(m) / fs
+        x[i:i + m] += 0.9 * np.sin(2 * np.pi * (60.0 * tt - 30.0 * tt * tt)).astype(
+            np.float32) * _adsr(m, 0.001, 0.05, fs)
+    for i in range(beat // 2, n, beat):
+        m = min(int(0.08 * fs), n - i)
+        noise = rng.standard_normal(m).astype(np.float32)
+        b, a = _resonator(1800.0, 800.0, fs)
+        x[i:i + m] += 0.5 * lfilter(b, a, noise).astype(np.float32) * _adsr(m, 0.0005, 0.03, fs)
+    for i in range(0, n, beat // 2):
+        m = min(int(0.03 * fs), n - i)
+        noise = rng.standard_normal(m).astype(np.float32)
+        hp = noise - np.concatenate([[0.0], noise[:-1]])
+        x[i:i + m] += 0.25 * hp.astype(np.float32) * _adsr(m, 0.0002, 0.01, fs)
+    return x
+
+
+def synth_bass(rng: np.random.Generator, fs: int, n: int, bpm: float, chords,
+               root: float) -> np.ndarray:
+    """The chord loop's root an octave down, one note a beat, three odd
+    harmonics."""
+    beat = int(60.0 / bpm * fs)
+    bar = 4 * beat
+    x = np.zeros(n, np.float32)
+    for i in range(0, n, beat):
+        f0 = _note_hz(root + chords[(i // bar) % len(chords)][0] - 12)
+        m = min(beat, n - i)
+        tt = np.arange(m) / fs
+        tone = sum((1.0 / (2 * k + 1)) * np.sin(2 * np.pi * f0 * (2 * k + 1) * tt)
+                   for k in range(3))
+        x[i:i + m] += 0.7 * tone.astype(np.float32) * _adsr(m, 0.005, 0.4, fs)
+    return x
+
+
+def synth_other(rng: np.random.Generator, fs: int, n: int, bpm: float, chords,
+                root: float) -> np.ndarray:
+    """Sustained triads of the chord loop, a bar each, three harmonics a
+    voice with vibrato and a random detune."""
+    beat = int(60.0 / bpm * fs)
+    bar = 4 * beat
+    x = np.zeros(n, np.float32)
+    for i in range(0, n, bar):
+        chord = chords[(i // bar) % len(chords)]
+        m = min(bar, n - i)
+        tt = np.arange(m) / fs
+        vib = 1.0 + 0.004 * np.sin(2 * np.pi * 5.0 * tt)
+        seg = np.zeros(m, np.float32)
+        for semi in chord:
+            f0 = _note_hz(root + semi + 12)
+            detune = 1.0 + rng.uniform(-0.002, 0.002)
+            for h in range(1, 4):
+                seg += (0.3 / h) * np.sin(2 * np.pi * f0 * detune * h * tt * vib).astype(
+                    np.float32)
+        x[i:i + m] += seg * _adsr(m, 0.05, 2.0, fs)
+    return x
+
+
+def synth_vocals(rng: np.random.Generator, fs: int, n: int) -> np.ndarray:
+    """Phrases of one synthetic voice, 2-5 s each, with 0.2-1 s rests."""
+    spk = make_speaker(rng)
+    out = np.zeros(n, np.float32)
+    pos = 0
+    while pos < n:
+        m = min(int(rng.uniform(2.0, 5.0) * fs), n - pos)
+        out[pos:pos + m] = synth_utterance(spk, rng, fs, m)
+        pos += m + int(rng.uniform(0.2, 1.0) * fs)
+    return out
+
+
+def write_track(track_dir: str, rng: np.random.Generator, fs: int, seconds: float) -> None:
+    """One track's four stems, each peak-normalized to its gain, and their
+    exact sum as ``mixture.wav`` (int16 at 32000 x the sample)."""
+    from scipy.io import wavfile
+
+    os.makedirs(track_dir, exist_ok=True)
+    n = int(seconds * fs)
+    bpm = float(rng.uniform(80, 140))
+    root = float(rng.uniform(0, 12))
+    chords = [MUSDB_CHORDS[int(rng.integers(len(MUSDB_CHORDS)))] for _ in range(4)]
+    stems = {
+        "drums": synth_drums(rng, fs, n, bpm),
+        "bass": synth_bass(rng, fs, n, bpm, chords, root),
+        "other": synth_other(rng, fs, n, bpm, chords, root),
+        "vocals": synth_vocals(rng, fs, n),
+    }
+    mixture = np.zeros(n, np.float32)
+    for name, wav in stems.items():
+        wav = (MUSDB_GAINS[name] * wav / (np.abs(wav).max() + 1e-9)).astype(np.float32)
+        stems[name] = wav
+        mixture += wav
+    stems["mixture"] = mixture
+    for name, wav in stems.items():
+        wavfile.write(os.path.join(track_dir, f"{name}.wav"), fs, (wav * 32000).astype(np.int16))
+
+
+def write_musdb_corpus(root: str, train_tracks: int = 60, test_tracks: int = 12,
+                       fs: int = 8000, seconds: float = 30.0, seed: int = 0) -> str:
+    """Write a MUSDB-layout corpus of synthetic music,
+    ``root/{train,test}/track<i>/{mixture,drums,bass,other,vocals}.wav``
+    (mono int16), the layout ``data.musdb.MusdbDataset`` reads. Each stem
+    family is spectrally and temporally distinct: drums, a bass line and
+    sustained triads on a per-track chord loop, and a formant voice. The
+    port's copy of ``scripts/make_synthetic_musdb.py``: the same files, bit
+    for bit, at the same arguments (train from ``seed``, test from ``seed +
+    1``). Returns ``root``."""
+    for split, count, split_seed in (("train", train_tracks, seed),
+                                     ("test", test_tracks, seed + 1)):
+        rng = np.random.default_rng(split_seed)
+        for i in range(count):
+            write_track(os.path.join(root, split, f"track{i:03d}"), rng, fs, seconds)
     return root

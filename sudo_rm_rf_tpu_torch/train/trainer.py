@@ -20,6 +20,11 @@ moments and no param. Its state is Adam's (``step``, ``exp_avg``,
 ``exp_avg_sq``: optax's ``ScaleByAdamState`` count, mu and nu), so a run
 resumes across the packages either way.
 
+With ``upload_dtype`` a train batch's floating arrays are cast on the host
+before the copy to the device (bf16 halves the bytes copied) and cast back to
+fp32 as the step's first operation, so the only change to the numerics is
+the rounding of the waveforms at the copy; integer arrays pass unchanged.
+
 With ``train_dropout`` the model is in train mode for the forward and
 backward of a train step only, and its dropout layers draw their masks from
 a ``torch.Generator`` the trainer owns (on the model's device, seeded with
@@ -40,10 +45,6 @@ from torch import nn
 from sudo_rm_rf_tpu_torch import losses as losses_lib
 from sudo_rm_rf_tpu_torch.train import augment as augment_lib
 
-# the trainer options of the JAX package that the port does not take yet,
-# each with the ROADMAP item that holds it
-_WAITING = {"shard_params": "ROADMAP queue 1, item 10",
-            "upload_dtype": "ROADMAP queue 1, item 5"}
 OPTIMIZERS = ("adam", "radam_cosine")
 
 
@@ -203,7 +204,9 @@ class TrainerConfig:
     # dropout in the train steps, from a generator seeded with dropout_seed
     train_dropout: bool = False
     dropout_seed: int = 0
-    upload_dtype: Optional[str] = None  # waits
+    # host-to-device dtype of a train batch's floating arrays (cast on the
+    # host, back to fp32 first thing on the device). None = as loaded.
+    upload_dtype: Optional[str] = None
 
 
 def _default_loss(est, targets):
@@ -233,20 +236,20 @@ def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor) -> None:
 def check_config(config: TrainerConfig) -> None:
     """Raise for a trainer option the port does not take yet."""
     if config.shard_params:
-        raise NotImplementedError(f"shard_params is not ported yet ({_WAITING['shard_params']})")
-    if config.upload_dtype not in (None, "float32"):
-        raise NotImplementedError(
-            f"upload_dtype is not ported yet ({_WAITING['upload_dtype']})")
+        raise NotImplementedError("shard_params is not ported yet (ROADMAP queue 1, item 10)")
+    upload = _dtype(config.upload_dtype, "upload_dtype")
+    if upload is not None and not upload.is_floating_point:
+        raise ValueError(f"upload_dtype must be a floating dtype, got {config.upload_dtype!r}")
     if config.optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {config.optimizer!r}; have {OPTIMIZERS}")
 
 
-def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
+def _dtype(name: Optional[str], what: str = "compute_dtype") -> Optional[torch.dtype]:
     if name is None:
         return None
     dtype = getattr(torch, name, None)
     if not isinstance(dtype, torch.dtype):
-        raise ValueError(f"unknown compute_dtype {name!r}")
+        raise ValueError(f"unknown {what} {name!r}")
     return dtype
 
 
@@ -284,6 +287,9 @@ class Trainer:
         self.loss_fn = loss_fn
         self.prepare_batch = prepare_batch or _default_prepare
         self.compute_dtype = _dtype(config.compute_dtype)
+        self.upload_dtype = _dtype(config.upload_dtype, "upload_dtype")
+        # bytes of the train batches copied from the host to the device
+        self.h2d_bytes = 0
         self.dropout_generator = None
         if config.train_dropout:
             from sudo_rm_rf_tpu_torch.models.attentive import set_dropout_generator
@@ -350,12 +356,45 @@ class Trainer:
             return type(batch)(self._to_device(b) for b in batch)
         return torch.as_tensor(batch).to(self.device)
 
+    def host_cast(self, x) -> torch.Tensor:
+        """A host array as a tensor, floating ones cast to ``upload_dtype``
+        (round to nearest even, as numpy's ml_dtypes casts); integer arrays
+        and every array without ``upload_dtype`` pass unchanged."""
+        x = torch.as_tensor(x)
+        if self.upload_dtype is not None and x.is_floating_point():
+            x = x.to(self.upload_dtype)
+        return x
+
+    def upload(self, batch):
+        """A train batch on the device, cast by :meth:`host_cast` before the
+        copy; on a CUDA device the copy is from pinned memory and does not
+        block the host."""
+        if isinstance(batch, (tuple, list)):
+            return type(batch)(self.upload(b) for b in batch)
+        x = self.host_cast(batch)
+        if x.device == self.device:
+            return x
+        if x.device.type == "cpu":
+            self.h2d_bytes += x.numel() * x.element_size()
+            if self.device.type == "cuda":
+                return x.pin_memory().to(self.device, non_blocking=True)
+        return x.to(self.device)
+
+    def _upcast(self, batch):
+        """Undo :meth:`host_cast` as the step's first operation: every recipe
+        then runs in fp32, as with an fp32 upload."""
+        if self.upload_dtype is None:
+            return batch
+        if isinstance(batch, (tuple, list)):
+            return type(batch)(self._upcast(b) for b in batch)
+        return batch.float() if batch.is_floating_point() else batch
+
     def compute_gradients(self, state: TrainState, batch, draws) -> torch.Tensor:
         """Augment (``draws`` go to ``prepare_batch`` with the batch), forward
         and backward: leaves each param's ``.grad`` (averaged over the
         microbatches) and returns the loss."""
         model = state.model
-        mixture, targets = self.prepare_batch(draws, self._to_device(batch))
+        mixture, targets = self.prepare_batch(draws, self._upcast(self.upload(batch)))
         state.optimizer.zero_grad(set_to_none=True)
         with self._dropout(model):
             return self._backward(model, mixture, targets)

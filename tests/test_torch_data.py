@@ -164,10 +164,17 @@ def test_setup_matches_jax(wham_root, libri_root, dataset):
 
 
 @pytest.mark.parametrize("name", ["MUSDB"])
-def test_setup_raises_for_datasets_that_wait(name):
+def test_setup_raises_for_datasets_that_wait(name, tmp_path, monkeypatch):
+    """No dataset of the JAX package waits since MUSDB was ported: its setup
+    now reaches the loader, which raises for a root without tracks as JAX's
+    does, and a name neither package knows raises JAX's ValueError."""
+    monkeypatch.setenv("SUDO_TPU_MUSDB8K_ROOT", str(tmp_path))
     hp = dict(tconfig.ExperimentConfig().hparams(), train=[name], val=[])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        tsetup.setup(hp)
+    for setup in (tsetup.setup, jsetup.setup):
+        with pytest.raises(ValueError, match="no musdb track dirs"):
+            setup(hp)
+    with pytest.raises(ValueError, match="NOSUCH is not yet supported"):
+        tsetup.setup(dict(hp, train=["NOSUCH"]))
 
 
 def test_setup_loads_augmented_datasets(tmp_path):
@@ -228,3 +235,38 @@ def test_synthetic_corpus_is_seeded_and_loads(tmp_path):
     mix, src = ds[0]
     assert np.abs(src).max() > 0.1
     np.testing.assert_allclose(mix, src.sum(0), atol=3 / 32768)
+
+
+def test_progress_and_visualization_match_jax(tmp_path):
+    """The port's progress map and heatmaps, as tests/test_utils_inference.py
+    holds JAX's: the same results and the same PNG files (matplotlib is in
+    this image), from arrays or tensors."""
+    import torch
+
+    from sudo_rm_rf_tpu.utils.progress import progress_bar_wrapper as jprogress
+    from sudo_rm_rf_tpu.utils.visualization import log_masks_and_bases as jlog
+    from sudo_rm_rf_tpu_torch.utils.progress import progress_bar_wrapper
+    from sudo_rm_rf_tpu_torch.utils.visualization import log_masks_and_bases
+
+    assert progress_bar_wrapper(lambda x: x * 2, [1, 2, 3], "doubling") == [2, 4, 6]
+    assert jprogress(lambda x: x * 2, [1, 2, 3], "doubling") == [2, 4, 6]
+    masks = np.random.default_rng(0).random((2, 16, 50)).astype(np.float32)
+    enc = np.random.default_rng(1).random((16, 1, 21)).astype(np.float32)
+    dec = np.random.default_rng(2).random((32, 2, 21)).astype(np.float32)
+    want = jlog(str(tmp_path / "jax"), masks=masks, encoder_basis=enc, decoder_basis=dec, step=1)
+    got = log_masks_and_bases(str(tmp_path / "port"), masks=torch.from_numpy(masks),
+                              encoder_basis=enc, decoder_basis=torch.from_numpy(dec), step=1)
+    assert len(got) == 4 and [os.path.basename(p) for p in got] == [
+        os.path.basename(p) for p in want]
+    assert all(os.path.getsize(p) > 0 for p in got)
+
+    class Experiment:
+        def __init__(self):
+            self.images = []
+
+        def log_image(self, path, step):
+            self.images.append((os.path.basename(path), step))
+
+    exp = Experiment()
+    log_masks_and_bases(str(tmp_path / "up"), encoder_basis=enc, step=3, experiment=exp)
+    assert exp.images == [("encoder_basis_step3.png", 3)]

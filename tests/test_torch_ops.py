@@ -108,7 +108,10 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
     SuDoRM-RF model types and a toy DPRNN (forward and one ``radam_cosine``
     step; the CLIs refuse the baselines, naming ROADMAP queue 3),
     separates with ``--model_type causal``, pushes a hop through a
-    ``StreamingSeparator`` and runs the streaming bench, without importing
+    ``StreamingSeparator`` and runs the streaming bench, trains one MUSDB
+    epoch with bf16 uploads through ``sudo-torch-train --train MUSDB``, packs
+    its test split into shards and reads them back, reads a preprocessed
+    folder and draws a heatmap (if matplotlib is there), without importing
     JAX, any module of the JAX package, joblib, msgpack or flax; asking for
     CUDA where there is none raises."""
     code = textwrap.dedent("""
@@ -135,6 +138,8 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
         from sudo_rm_rf_tpu_torch.inference import StreamingSeparator, streaming
         from sudo_rm_rf_tpu_torch.models import attentive, causal_sudormrf, sudormrf
         import sudo_rm_rf_tpu_torch.bench_streaming as bench_streaming
+        from sudo_rm_rf_tpu_torch.data import musdb, preprocessed, shards
+        from sudo_rm_rf_tpu_torch.utils import progress, visualization
 
         hp = dict(out_channels=8, in_channels=16, num_blocks=1, upsampling_depth=2,
                   enc_num_basis=8)
@@ -243,6 +248,28 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
         assert sep.push(np.zeros(40, np.float32)).shape == (2, 40)
         assert bench_streaming.main(["--device", "cpu", "--streams", "1", "--n_hi", "2",
                                      "--hop", "40", "--context", "80"], model_kwargs=hp) == 0
+        # MUSDB with bf16 uploads, shards, a preprocessed folder, the utils
+        mus = synthetic.write_musdb_corpus(os.path.join(tmp, "musdb"), 2, 1, seconds=1.5)
+        assert train_cli.main(["--train", "MUSDB", "--val", "MUSDB", "--musdb_root", mus,
+                               "--n_epochs", "1", "-bs", "2", "--audio_timelength", "0.5",
+                               "--n_train", "2", "--n_jobs", "1", "--block_impl", "xla",
+                               "--upload_dtype", "bfloat16", "-elp",
+                               os.path.join(tmp, "mlogs"), "-clp", os.path.join(tmp, "mckpt"),
+                               *hp_argv, "--device", "cpu"]) == 0
+        test_split = musdb.MusdbDataset(root_dirpath=mus, split="test", sample_rate=8000,
+                                        n_channels=1, timelength=0.5)
+        packed = shards.ShardedDataset(shards.pack_dataset(test_split, os.path.join(tmp, "sh")))
+        assert np.array_equal(packed[0][0], test_split[0])
+        from sudo_rm_rf_tpu_torch.prep import hierarchical as prep
+        from sudo_rm_rf_tpu_torch.utils import joblib_format
+        os.makedirs(os.path.join(tmp, "pre", "utt"))
+        joblib_format.dump(np.ones((1, 8), np.float32), os.path.join(tmp, "pre", "utt", "wav"))
+        pre = preprocessed.PreprocessedDataset(root_dirpath=os.path.join(tmp, "pre"),
+                                               return_items=["wav"])
+        assert pre[0][0].shape == (8,)
+        assert progress.progress_bar_wrapper(lambda v: v + 1, [1, 2]) == [2, 3]
+        visualization.log_masks_and_bases(os.path.join(tmp, "viz"),
+                                          encoder_basis=np.ones((4, 1, 3)))
         foreign = sorted(k for k in sys.modules if k.split(".")[0] in (
             "jax", "sudo_rm_rf_tpu", "joblib", "msgpack", "flax"))
         assert not foreign, foreign

@@ -115,7 +115,10 @@ def test_radam_cosine_matches_optax_fed_identical_grads():
         jparams = optax.apply_updates(jparams, updates)
         before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
         for n, p in state.model.named_parameters():
-            p.grad = torch.from_numpy(g[n]).reshape(p.shape)
+            # a copy: on the CPU jnp.asarray may alias a 64-byte-aligned numpy
+            # array, and the port clips p.grad in place, which would change
+            # JAX's grads under an update that is still running
+            p.grad = torch.tensor(g[n]).reshape(p.shape)
         norm = float(tr.apply_gradients(state))
         clipped += norm > 5.0
         want = _by_name(jparams, keys)

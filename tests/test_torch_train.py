@@ -389,11 +389,13 @@ def test_mixture_consistency_in_the_step_matches_jax(weights):
     (dict(shard_params=True), NotImplementedError),
     # taken since train_dropout was ported, but only by a model with dropout
     (dict(train_dropout=True), ValueError),
-    (dict(upload_dtype="bfloat16"), NotImplementedError),
+    # taken since upload_dtype was ported, but only as a floating dtype
+    (dict(upload_dtype="int8"), ValueError),
     (dict(compute_dtype="bfloat17"), ValueError),
 ])
 def test_trainer_raises_for_options_that_wait(cfg, error):
-    with pytest.raises(error, match="ROADMAP|compute_dtype|no dropout layers|warmup_steps"):
+    with pytest.raises(error, match="ROADMAP|compute_dtype|upload_dtype|no dropout layers|"
+                                    "warmup_steps"):
         ttrainer.Trainer(models.get_model("relu", **TOY), ttrainer.TrainerConfig(**cfg))
 
 
@@ -508,8 +510,9 @@ def test_run_experiment_stops_early_on_a_plateau(tmp_path, monkeypatch):
     (["--device_data"], NotImplementedError),
     (["--n_model", "2"], NotImplementedError),
     (["--remat_blocks", "--block_impl", "kernel"], ValueError),
-    (["--upload_dtype", "bfloat16"], NotImplementedError),
-    (["--train", "MUSDB"], NotImplementedError),
+    # taken since MUSDB was ported, but on a mono model input only, as in JAX
+    (["--train", "MUSDB", "--n_channels", "2"], ValueError),
+    (["--train", "NOSUCH"], ValueError),
     # the baselines take their own hparams: the JAX CLI cannot build them either
     (["--model_type", "dprnn"], ValueError),
     (["--model_type", "sepformer"], ValueError),
