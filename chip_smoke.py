@@ -144,12 +144,28 @@
    ``sudo-torch-separate --num_sources 4`` of a 30 s track (16 K1 launches
    a batch, the kernel forward >= 80 dB from ``fma``, each stem's SI-SDRi);
    a preprocessed folder of the port's ``prep`` read without joblib.
-19. Print JSON lines of the serving, training, evaluation, recipe,
-   augmented, reduced-precision, bench, causal, zoo, baseline and MUSDB
-   results, each phase's seconds, and one line of kernel results (K1 with
-   an fp32 and with a bf16 pyramid; the first with the AUGMENTED evaluation's
-   and the MUSDB separation's launches, and its 0 launches on the causal,
-   v1, attentive, baseline and MUSDB training paths), then
+19. Exact long-form separation (``inference/sequence_parallel.py``): one
+   10-minute 8 kHz mixture made from ``--seed`` through
+   ``SequenceParallelSeparator`` for Improved and GroupComm U16/512 (seeded
+   weights): the one-rank K1 route in fp32 and in bf16 (16 K1 launches a
+   pass each), the one-rank plain shard body, ``LocalShards(2)`` and
+   ``LocalShards(8)``, and the shard body over a one-rank NCCL group
+   (``DistributedShards``, 0 K1 launches each); every run >= 80 dB from the
+   unsharded ``fma`` / ``fma_merged`` forward of the same padded signal (the
+   bf16 route >= 35 dB from that forward in bf16, which computes its blocks
+   in bf16 where K1 computes in fp32), with its seconds, peak memory and
+   launches. K1 at that pass's block shape (1, 256, 512, 480000,
+   5) against ``uconv_block_reference`` (>= 80 dB on the block's change),
+   its time, bound and yardstick; ``sudo-torch-separate --mode
+   seq_parallel`` of a 60 s wav within 1 LSB of the Python API.
+20. Print JSON lines of the serving, training, evaluation, recipe,
+   augmented, reduced-precision, bench, causal, zoo, baseline, MUSDB and
+   long-form results, each phase's seconds, and one line of kernel results
+   (K1 with an fp32 and with a bf16 pyramid; the first with the AUGMENTED
+   evaluation's, the MUSDB separation's and the long-form passes' launches,
+   K1's time at the long-form block shape, and its 0 launches on the causal,
+   v1, attentive, baseline and MUSDB training paths and the n-shard body),
+   then
    ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
    exits non-zero. ``--only PHASE ...`` runs some phases (a rehearsal on
    the card, without the kernels and ok lines).
@@ -318,6 +334,14 @@ BASELINE_BENCH = ("convtasnet", "dprnn", "demucs", "tdcn", "sepformer")
 # bound at ~260 ms, so its 2,002 steps took 530 s of the phase's 630.
 RADAM_FILES, RADAM_SECONDS, RADAM_SEED = 1001, 1.5, 0
 RADAM_HP = dict(FLAGSHIP, num_blocks=1)
+# exact long-form separation: a 10-minute 8 kHz recording in one pass
+# (4,800,000 samples; the one-rank K1 route runs K1 at (1, 256, 512, 480000,
+# 5)), the shard counts of the n-shard body run on one card, and the CLI's
+# wav
+LONGFORM_SECONDS = 600.0
+LONGFORM_SHARDS = (2, 8)
+LONGFORM_CLI_SECONDS = 60.0
+LONGFORM_BLOCK = (1, 256, 512, int(LONGFORM_SECONDS * FS) // 10, 5)
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 25) -> float:
@@ -2279,8 +2303,244 @@ def baselines_phase(torch, np, tmp: str, device: str = "cuda", zoo: dict = BASEL
     return res
 
 
+def k1_long_check(torch, U, lib, shape=LONGFORM_BLOCK) -> dict:
+    """K1 at the 10-minute block shape against ``uconv_block_reference`` on
+    the card: dB on the block's change (out - x), its CUDA-event time beside
+    the plain version's, the ``torch.matmul`` yardstick of its two products,
+    and its bound."""
+    b, co, ci, t, depth = shape
+    p = block_params(torch, depth, ci, co, seed=0)
+    x = torch.randn(b, co, t, generator=torch.Generator().manual_seed(1)).cuda()
+    got = U.fused_uconv_block(x, p, depth)
+    torch.cuda.synchronize()
+    want = U.uconv_block_reference(x, p, depth)
+    err = (got - want).abs().max().item()
+    db = _snr_db(torch, want - x, got - x)
+    del want, got
+    ms = time_ms(torch, lambda: U.fused_uconv_block(x, p, depth), warmup=2, reps=10)
+    plain_ms = time_ms(torch, lambda: U.uconv_block_reference(x, p, depth), warmup=1, reps=3)
+    acc_in = torch.randn(b, ci, t, generator=torch.Generator().manual_seed(2)).cuda()
+    lib_ms = time_ms(torch, lambda: (torch.matmul(p["proj_w"], x),
+                                     torch.matmul(p["res_w"], acc_in)), warmup=2, reps=10)
+    bound = k1_bound(b, co, ci, t, depth)
+    parts = device_ms_by_kernel(torch, lambda: U.fused_uconv_block(x, p, depth), 5)
+    # a trace that lost launches (seen late in a whole run) is not a reading
+    covered = sum(parts.values()) / ms
+    print(f"K1 long shape device ms per call by part (torch.profiler, 5 calls): "
+          + (", ".join(f"{k} {parts[k]:.3f}" for k in K1_PARTS if k in parts)
+             or "not measured (no device time in the trace)")
+          + f"; the parts sum to {covered:.1%} of the CUDA-event time")
+    if not 0.9 <= covered <= 1.1:
+        print("K1 long shape parts: not measured (the trace does not cover the call)")
+        parts = {}
+    ws_gb = 4 * lib.uconv_workspace_floats(b, co, ci, t, depth, 0) / 1e9
+    print(f"K1 long shape {shape}: max_abs_err {err:.3e}, {db:.2f} dB on the block's change "
+          f"against uconv_block_reference; {ms:.3f} ms (median of 10), plain {plain_ms:.3f} "
+          f"ms, torch.matmul of its two products {lib_ms:.3f} ms; bound {bound['bound_ms']:.4f} "
+          f"ms ({bound['bound_by']}; share {bound['bound_ms'] / ms:.1%}); workspace "
+          f"{ws_gb:.2f} GB a call (from the shapes)")
+    if not db >= MIN_FIDELITY_DB:
+        raise RuntimeError(f"K1 at {shape}: {db:.2f} dB < {MIN_FIDELITY_DB} dB")
+    return dict(shape=f"B,Co,Ci,T,depth={b},{co},{ci},{t},{depth}", max_abs_err=err,
+                fidelity_db=db, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_call="torch.matmul of the proj and res products",
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                parts_ms={k: parts.get(k) for k in K1_PARTS})
+
+
+def longform_phase(torch, np, tmp: str, seed: int = 0, device: str = "cuda",
+                   families: dict | None = None, seconds: float = LONGFORM_SECONDS,
+                   cli_seconds: float = LONGFORM_CLI_SECONDS,
+                   shards=LONGFORM_SHARDS) -> dict:
+    """Exact long-form separation: one ``seconds`` 8 kHz mixture (made from
+    ``seed``) through ``SequenceParallelSeparator`` for Improved and GroupComm
+    U16/512: the one-rank K1 route in fp32 and with ``compute_dtype=
+    "bfloat16"``, the one-rank plain shard body, ``LocalShards(n)`` for each
+    n of ``shards``, and ``DistributedShards`` over a one-rank NCCL group
+    (gloo on the CPU). Each run against the unsharded ``fma`` /
+    ``fma_merged`` forward of the same padded signal in its compute dtype
+    (>= 80 dB in fp32; >= BF16_GATE_DB for the bf16 route, which runs K1 in
+    fp32 from bf16-rounded params while the plain bf16 forward computes in
+    bf16), its seconds (a second call after a warm-up), peak memory and K1
+    launches (16 a pass on the K1 routes, 0 elsewhere). Then K1 at the
+    10-minute block shape, and ``sudo-torch-separate --mode seq_parallel``
+    of a ``cli_seconds`` wav within 1 LSB of the Python API."""
+    import datetime
+
+    import torch.distributed as dist
+    from scipy.io import wavfile
+
+    from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.cli.separate import main as separate_main
+    from sudo_rm_rf_tpu_torch.data.base import read_wav
+    from sudo_rm_rf_tpu_torch.inference import sequence_parallel as sp
+    from sudo_rm_rf_tpu_torch.models import fast_inference as fi
+    from sudo_rm_rf_tpu_torch.ops import _build
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+
+    cuda = device == "cuda"
+    families = families or {"relu": FLAGSHIP, "groupcomm_v2": GROUPCOMM}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def mixture(n, rng):
+        tt = np.arange(n) / FS
+        return (0.3 * np.sin(2 * np.pi * 220 * tt) + 0.2 * np.sin(2 * np.pi * 1330 * tt)
+                + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+    n = int(seconds * FS)
+    mix = mixture(n, np.random.default_rng(seed))
+    out = {"seconds": seconds, "seed": seed, "families": {}}
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        for model_type, hp in families.items():
+            gc = model_type == "groupcomm_v2"
+            tag = "GC U16/512" if gc else "U16/512"
+            model = models.get_model(model_type, **hp, device=device,
+                                     generator=torch.Generator().manual_seed(0)).eval()
+            fast = fi.groupcomm_forward_fast if gc else fi.improved_forward_fast
+            mean, std = float(mix.mean()), float(mix.std(ddof=1))
+            refs, ref_s = {}, {}
+
+            def reference(total, dtype=None):
+                """The unsharded plain forward, in ``dtype``, of the signal
+                padded to total samples (the shard counts may pad
+                differently: GlobLN sees the pad), de-standardized as the
+                separator does."""
+                key = (total, dtype)
+                if key not in refs:
+                    padded = np.zeros(total, np.float32)
+                    padded[:n] = (mix - mean) / (std + 1e-9)
+                    sync()
+                    t0 = time.perf_counter()
+                    ref = fast(model, torch.from_numpy(padded).to(device)[None, None],
+                               impl="fma_merged" if gc else "fma", compute_dtype=dtype)
+                    sync()
+                    ref_s[f"{total}_{dtype or 'float32'}"] = time.perf_counter() - t0
+                    refs[key] = ref[0, :, :n].cpu().numpy().astype(np.float64) * std + mean
+                    del ref
+                return refs[key]
+
+            runs = {"kernel": dict(impl="kernel"),
+                    "kernel_bf16": dict(impl="kernel", compute_dtype="bfloat16"),
+                    "fma": dict(impl="fma"),
+                    **{f"local{k}": dict(comm=sp.LocalShards(k)) for k in shards},
+                    # the shard body over the process group: its collectives
+                    # launch on the card (one rank would take the K1 route)
+                    "distributed1": dict(comm=sp.DistributedShards(), impl="fma")}
+            if not cuda:
+                del runs["kernel"], runs["kernel_bf16"]
+            rows = {}
+            for label, kw in runs.items():
+                sep = sp.SequenceParallelSeparator(model, **kw)
+                sep.separate(mix)  # warm-up
+                # the path, with the kernel count at 0 just before it
+                U.fused_uconv_block.launches = 0
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                est = sep.separate(mix)
+                sync()
+                secs = time.perf_counter() - t0
+                launches = U.fused_uconv_block.launches
+                peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else None
+                if est.shape != (2, n) or not np.isfinite(est).all():
+                    raise RuntimeError(f"longform {tag} {label}: bad output {est.shape}")
+                dtype = kw.get("compute_dtype")
+                total = sep._padded_len(n)
+                fid = fidelity_db(np, reference(total, dtype), est.astype(np.float64))
+                floor = MIN_FIDELITY_DB if dtype is None else BF16_GATE_DB
+                want = hp["num_blocks"] if sep.route == "kernel" else 0
+                rows[label] = dict(route=sep.route, n_shards=sep.comm.world,
+                                   compute_dtype=dtype or "float32", seconds=secs,
+                                   audio_s_per_s=seconds / secs, peak_mib=peak,
+                                   k1_launches=launches, fidelity_db=fid)
+                extra = ""
+                if dtype is not None:
+                    fid32 = fidelity_db(np, reference(total), est.astype(np.float64))
+                    rows[label]["fidelity_fp32_db"] = fid32
+                    extra = f" ({fid32:.2f} dB from the fp32 one)"
+                print(f"longform {tag} {seconds:.0f} s {label}: route {sep.route}, "
+                      f"{sep.comm.world} shard(s), {secs:.3f} s ({seconds / secs:.1f} audio-s/s)"
+                      f", peak {peak if peak is None else round(peak)} MiB, {launches} K1 "
+                      f"launches, {fid:.2f} dB from the unsharded plain "
+                      f"{dtype or 'float32'} forward{extra}", flush=True)
+                if launches != want:
+                    raise RuntimeError(f"longform {tag} {label}: {launches} K1 launches, "
+                                       f"expected {want}")
+                if label.startswith("kernel") != (sep.route == "kernel"):
+                    raise RuntimeError(f"longform {tag} {label}: route {sep.route}")
+                if not fid >= floor:
+                    raise RuntimeError(f"longform {tag} {label}: {fid:.2f} dB < {floor} dB")
+                if cuda and label == "kernel":
+                    # where the K1 route's pass goes: K1's parts, the rest by
+                    # kernel name, and the device's idle share of the pass
+                    call = lambda: sep.separate(mix)  # noqa: E731
+                    parts = device_ms_by_kernel(torch, call, 1)
+                    named = device_ms_by_kernel(torch, call, 1, by_part=False)
+                    top = sorted(((k, v) for k, v in named.items() if not re.search(
+                        r"(%s)_kernel" % "|".join(K1_PARTS), k)), key=lambda kv: -kv[1])[:6]
+                    busy = sum(parts.values())
+                    rows[label].update(device_ms=parts, busy_ms=busy,
+                                       idle_share=1 - busy / (1e3 * secs),
+                                       top_other_kernels_ms={k[:80]: v for k, v in top})
+                    print(f"longform {tag} kernel pass device ms (torch.profiler): "
+                          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(parts.items()))
+                          + f"; busy {busy:.1f} of {1e3 * secs:.1f} ms, idle "
+                          f"{1 - busy / (1e3 * secs):.1%}; top outside K1: "
+                          + "; ".join(f"{k[:60]} {v:.2f}" for k, v in top))
+                del sep, est
+            out["families"][model_type] = dict(reference_s=list(ref_s.values()), runs=rows)
+            del model, refs
+    finally:
+        dist.destroy_process_group()
+
+    if cuda:
+        out["k1_long"] = k1_long_check(torch, U, _build.load_kernels())
+
+    # the CLI on a shorter wav, within 1 LSB of the Python API
+    hp = families["relu"]
+    model = models.get_model("relu", **hp, device=device,
+                             generator=torch.Generator().manual_seed(0)).eval()
+    ckpt = os.path.join(tmp, "relu.pt")
+    torch.save(model.state_dict(), ckpt)
+    wav = os.path.join(tmp, "long.wav")
+    wavfile.write(wav, FS, (mixture(int(cli_seconds * FS), np.random.default_rng(seed + 1))
+                            * 32767).astype(np.int16))
+    out_dir = os.path.join(tmp, "separated_long")
+    U.fused_uconv_block.launches = 0
+    t0 = time.perf_counter()
+    run_cli(separate_main, ["--checkpoint", ckpt, "--model_type", "relu", "--input", wav,
+                            "--out_dir", out_dir, "--mode", "seq_parallel", "--device", device,
+                            "-fs", str(FS), *hp_argv(hp)])
+    sync()
+    cli_s = time.perf_counter() - t0
+    cli_launches = U.fused_uconv_block.launches
+    api = sp.SequenceParallelSeparator(model).separate(read_wav(wav)[1])
+    lsb = 0
+    for s in (1, 2):
+        got = wavfile.read(os.path.join(out_dir, f"long_s{s}.wav"))[1].astype(np.int32)
+        want = api[s - 1] / max(1.0, float(np.abs(api[s - 1]).max()))
+        lsb = max(lsb, int(np.abs(got - (want * 32767).astype(np.int32)).max()))
+    print(f"longform CLI sudo-torch-separate --mode seq_parallel, {cli_seconds:.0f} s wav: "
+          f"{cli_s:.2f} s, {cli_launches} K1 launches, {lsb} LSB from the Python API")
+    if lsb > 1:
+        raise RuntimeError(f"the seq_parallel CLI is {lsb} LSB from the Python API")
+    if cli_launches != (hp["num_blocks"] if cuda else 0):
+        raise RuntimeError(f"the seq_parallel CLI launched K1 {cli_launches} times")
+    out["cli"] = dict(seconds=cli_s, k1_launches=cli_launches, lsb=lsb,
+                      recording_s=cli_seconds)
+    return out
+
+
 PHASES = ("k1", "k1_bf16", "float64", "serve", "train", "evaluate", "recipes", "augmented",
-          "bf16", "int8", "bench", "causal", "zoo", "zoo_cli", "baselines", "musdb")
+          "bf16", "int8", "bench", "causal", "zoo", "zoo_cli", "baselines", "musdb",
+          "longform")
 
 
 def main(argv=None) -> int:
@@ -2291,6 +2551,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="+", choices=PHASES, default=list(PHASES),
                     help="run these phases only (a rehearsal: no kernels or ok line)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the longform phase's 10-minute mixture")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2463,6 +2725,15 @@ def main(argv=None) -> int:
         return out
 
     phase("musdb", musdb)
+
+    # 19. exact long-form separation of a 10-minute recording
+    def longform():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = longform_phase(torch, np, tmp, seed=args.seed)
+        print(json.dumps({"longform": out}))
+        return out
+
+    phase("longform", longform)
     print(f"phase seconds: {json.dumps(seconds)}")
     if set(args.only) != set(PHASES):
         print(f"chip_smoke: ran {args.only} only; no kernels line and no ok line")
@@ -2502,6 +2773,19 @@ def main(argv=None) -> int:
         # MUSDB trains through the xla blocks and serves its 4 stems through K1
         "launches_musdb_training_path": res["musdb"]["train"]["k1_launches"],
         "launches_musdb_separate": res["musdb"]["separate"]["launches"],
+        # one 10-minute pass through the one-rank K1 route (the n-shard body
+        # runs plain ops: 0), and K1 at that pass's block shape
+        "launches_longform_u16": res["longform"]["families"]["relu"]["runs"]["kernel"][
+            "k1_launches"],
+        "launches_longform_gc": res["longform"]["families"]["groupcomm_v2"]["runs"]["kernel"][
+            "k1_launches"],
+        "launches_longform_bf16": sum(
+            f["runs"]["kernel_bf16"]["k1_launches"] for f in res["longform"]["families"].values()),
+        "launches_longform_shard_body": sum(
+            r["k1_launches"] for f in res["longform"]["families"].values()
+            for k, r in f["runs"].items() if not k.startswith("kernel")),
+        "launches_longform_cli": res["longform"]["cli"]["k1_launches"],
+        "longform_shape": res["longform"]["k1_long"],
         **flagship, "gc_shape": k1["groupcomm"], "u36_shape": k1["u36"],
         "float64_check": res["float64"],
     }, {

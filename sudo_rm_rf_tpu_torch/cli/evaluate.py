@@ -18,7 +18,9 @@ per example as one JSON line (the JAX CLI's keys):
         --enc_num_basis 4096 --root_dirpath /mnt/data/whamr
 
 ``--full_length`` scores whole recordings (padded to the split's longest)
-through the overlap-add separator, ``--batch_size`` chunks a forward.
+through the overlap-add separator, or with ``--full_length_mode
+seq_parallel`` in one exact pass (``inference.SequenceParallelSeparator``,
+one rank on ``--device``); ``--batch_size`` chunks a forward.
 ``--dataset AUGMENTED --dataset_paths ROOT ...`` scores ``--n_samples``
 (default 1000) fixed mixtures of a hierarchical corpus (seed 42, as the
 JAX CLI draws them).
@@ -61,11 +63,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=[None, "uniform", "magsq"])
     p.add_argument("--full_length_mode", default="overlap_add",
                    choices=["overlap_add", "seq_parallel"],
-                   help="whole-recording engine: overlap-add chunking; "
-                        "seq_parallel is not ported (ROADMAP queue 1, item 13)")
+                   help="whole-recording engine: overlap-add chunking, or "
+                        "seq_parallel, one exact pass (relu, groupcomm_v2, causal, "
+                        "attention, attention_v2) run as one rank on --device (a launch "
+                        "over several ranks waits for ROADMAP queue 1, item 4)")
     p.add_argument("--full_length", action="store_true",
-                   help="evaluate whole recordings through the overlap-add "
-                        "separator instead of fixed-length crops")
+                   help="evaluate whole recordings through the engine of "
+                        "--full_length_mode instead of fixed-length crops")
     p.add_argument("--bss_filter_taps", type=int, default=512,
                    help="BSS-eval distortion-filter length: 512 = the "
                         "museval/mir_eval convention; 1 = scalar-gain closed form")
@@ -174,8 +178,11 @@ def main(argv=None):
     if args.dataset == "AUGMENTED" and not args.dataset_paths:
         raise SystemExit("--dataset_paths is required with AUGMENTED")
     if args.full_length and args.full_length_mode == "seq_parallel":
-        raise NotImplementedError(
-            "--full_length_mode seq_parallel is not ported yet (ROADMAP queue 1, item 13)")
+        from sudo_rm_rf_tpu_torch.inference.sequence_parallel import SEQ_TYPES
+
+        if args.model_type not in SEQ_TYPES:
+            p.error(f"--full_length_mode seq_parallel supports model_type in {SEQ_TYPES} "
+                    "(attention_v3 falls back to overlap_add)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available")
@@ -227,7 +234,11 @@ def main(argv=None):
         return est * std + mean
 
     ola = None
-    if args.full_length:
+    if args.full_length and args.full_length_mode == "seq_parallel":
+        from sudo_rm_rf_tpu_torch.inference import SequenceParallelSeparator
+
+        ola = SequenceParallelSeparator(model, mixture_consistency=args.mixture_consistency)
+    elif args.full_length:
         from sudo_rm_rf_tpu_torch.inference import OverlapAddSeparator
 
         ola = OverlapAddSeparator(

@@ -1,7 +1,9 @@
 """`sudo-torch-separate`: separate wav files with a torch checkpoint.
 
-Counterpart of ``sudo_rm_rf_tpu/cli/separate.py`` in its overlap-add mode
-(``--mode overlap_add``, the default; ``seq_parallel`` raises).
+Counterpart of ``sudo_rm_rf_tpu/cli/separate.py``: ``--mode overlap_add``
+(the default) chunks each recording; ``--mode seq_parallel`` separates it in
+one exact pass (``inference.SequenceParallelSeparator``, model types
+``relu`` and ``groupcomm_v2`` as the JAX CLI), on one rank on ``--device``.
 Takes a ``.pt`` holding a state_dict (the published format, or one written
 by ``sudo-torch-export``) or a whole pickled module, or a msgpack checkpoint
 of either package (bare params or a whole ``TrainState``; the file's first
@@ -40,8 +42,10 @@ def main(argv=None):
                    choices=[None, "uniform", "magsq"])
     p.add_argument("--mode", default="overlap_add",
                    choices=["overlap_add", "seq_parallel"],
-                   help="overlap_add: COLA chunking (any model); seq_parallel "
-                        "is not ported (ROADMAP queue 1, item 10)")
+                   help="overlap_add: COLA chunking (any model); seq_parallel: one "
+                        "exact pass over the whole recording (relu, groupcomm_v2), run as "
+                        "one rank on --device (a launch over several ranks waits for "
+                        "ROADMAP queue 1, item 4)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on; never falls back to the CPU")
     p.add_argument("--reference_root", default=None,
@@ -55,14 +59,13 @@ def main(argv=None):
     p.add_argument("--enc_num_basis", type=int, default=512)
     p.add_argument("--group_size", type=int, default=16)
     args = p.parse_args(argv)
-    if args.mode == "seq_parallel":
-        raise NotImplementedError(
-            "--mode seq_parallel is not ported yet (ROADMAP queue 1, item 10)")
+    if args.mode == "seq_parallel" and args.model_type not in ("relu", "groupcomm_v2"):
+        p.error("--mode seq_parallel supports model_type 'relu' or 'groupcomm_v2'")
 
     import torch
 
     from sudo_rm_rf_tpu_torch import models
-    from sudo_rm_rf_tpu_torch.inference import separate_file
+    from sudo_rm_rf_tpu_torch.inference import SequenceParallelSeparator, separate_file
     from sudo_rm_rf_tpu_torch.utils.benchmark import serving_forward
 
     models.check_cli_model_type(args.model_type)
@@ -81,14 +84,16 @@ def main(argv=None):
     model = models.load_checkpoint_model(args.model_type, hp, args.checkpoint, device,
                                          reference_root=args.reference_root)
 
+    if args.mode == "seq_parallel":
+        kwargs = dict(separator=SequenceParallelSeparator(
+            model, mixture_consistency=args.mixture_consistency))
+    else:
+        kwargs = dict(chunk_seconds=args.chunk_seconds, batch_chunks=args.batch_chunks,
+                      mixture_consistency=args.mixture_consistency,
+                      forward_fn=functools.partial(serving_forward(model), model))
     for path in args.input:
-        outs = separate_file(
-            model, path, args.out_dir, fs=args.fs,
-            chunk_seconds=args.chunk_seconds, num_sources=args.num_sources,
-            batch_chunks=args.batch_chunks,
-            mixture_consistency=args.mixture_consistency,
-            forward_fn=functools.partial(serving_forward(model), model),
-        )
+        outs = separate_file(model, path, args.out_dir, fs=args.fs,
+                             num_sources=args.num_sources, **kwargs)
         print(f"{path} -> {outs}")
     return 0
 

@@ -11,6 +11,7 @@ from sudo_rm_rf_tpu_torch.convert.flax_checkpoint import (
 from sudo_rm_rf_tpu_torch.convert.jax_params import (
     load_jax_params,
     load_jax_train_state,
+    params_to_flax,
     unstack_block_params,
 )
 from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import load_pt_file, load_state_dict_checked
@@ -24,6 +25,7 @@ __all__ = [
     "load_pt_file",
     "load_state_dict_checked",
     "load_train_state_from_checkpoint",
+    "params_to_flax",
     "save_train_state",
     "unstack_block_params",
 ]

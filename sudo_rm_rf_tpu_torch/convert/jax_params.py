@@ -1,4 +1,5 @@
-"""Load the JAX package's param trees and train states into the port.
+"""Load the JAX package's param trees and train states into the port, and
+write a model's params as such a tree.
 
 The port's modules carry the torch reference's attribute names, so a flax
 param tree (nested dicts of arrays) maps onto ``model.state_dict()`` by pure
@@ -21,6 +22,7 @@ import torch
 from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import (
     load_state_dict_checked,
     params_to_state_dict,
+    torch_key_to_flax_path,
 )
 
 
@@ -70,6 +72,18 @@ def load_jax_params(model, params):
     ``load_state_dict``; returns the model."""
     return load_state_dict_checked(
         model, params_to_state_dict(unstack_block_params(params), model.state_dict().keys()))
+
+
+def params_to_flax(model) -> dict:
+    """The model's params as an unrolled flax ``params`` tree (nested dicts
+    of numpy arrays), the inverse of :func:`load_jax_params`."""
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        node, path = tree, torch_key_to_flax_path(name)
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = p.detach().cpu().numpy().copy()
+    return tree
 
 
 def _find_adam_state(tree):

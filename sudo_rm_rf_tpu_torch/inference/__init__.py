@@ -1,6 +1,12 @@
 """Long-recording and streaming separation runtimes of the port."""
 
 from sudo_rm_rf_tpu_torch.inference.overlap_add import OverlapAddSeparator, separate_file
+from sudo_rm_rf_tpu_torch.inference.sequence_parallel import (
+    DistributedShards,
+    LocalShards,
+    SequenceParallelSeparator,
+)
 from sudo_rm_rf_tpu_torch.inference.streaming import StreamingSeparator
 
-__all__ = ["OverlapAddSeparator", "StreamingSeparator", "separate_file"]
+__all__ = ["DistributedShards", "LocalShards", "OverlapAddSeparator",
+           "SequenceParallelSeparator", "StreamingSeparator", "separate_file"]

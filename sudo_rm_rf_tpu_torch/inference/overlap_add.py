@@ -150,10 +150,13 @@ def separate_file(
     fs: int = 8000,
     chunk_seconds: float = 4.0,
     num_sources: int = 2,
+    separator=None,
     **kwargs,
 ):
     """Read a wav, separate it, write <stem>_s{i}.wav files (int16, peak-
-    normalized where the peak exceeds 1)."""
+    normalized where the peak exceeds 1). ``separator``: anything with
+    ``separate((T,)) -> (S, T)`` (default: an ``OverlapAddSeparator`` of
+    ``model`` built from the other arguments)."""
     from scipy.io import wavfile
 
     from sudo_rm_rf_tpu_torch.data.base import read_wav
@@ -161,11 +164,12 @@ def separate_file(
     sr, wav = read_wav(in_path)
     if sr != fs:
         raise ValueError(f"{in_path}: sample rate {sr} != expected {fs}")
-    sep = OverlapAddSeparator(
-        model, chunk_samples=int(chunk_seconds * fs), num_sources=num_sources,
-        **kwargs,
-    )
-    est = sep.separate(wav)
+    if separator is None:
+        separator = OverlapAddSeparator(
+            model, chunk_samples=int(chunk_seconds * fs), num_sources=num_sources,
+            **kwargs,
+        )
+    est = separator.separate(wav)
     os.makedirs(out_dir, exist_ok=True)
     stem = os.path.splitext(os.path.basename(in_path))[0]
     paths = []

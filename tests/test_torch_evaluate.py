@@ -221,21 +221,28 @@ def test_evaluate_writes_the_per_example_pickle(tmp_path, capsys, whamr_root):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--full_length", "--full_length_mode", "seq_parallel"], NotImplementedError, "item 13"),
+    (["--full_length", "--full_length_mode", "seq_parallel", "--model_type", "attention_v3"],
+     SystemExit, "seq_parallel supports model_type in .*attention_v3 falls back"),
     (["--dataset", "AUGMENTED"], SystemExit, "--dataset_paths is required"),
     (["--model_type", "dprnn"], ValueError, "ROADMAP queue 3"),
     (["--model_type", "sepformer"], ValueError, "ROADMAP queue 3"),
     (["--device", "cuda"], RuntimeError, "no CUDA"),
 ])
-def test_evaluate_raises_for_what_waits(tmp_path, whamr_root, monkeypatch, extra, error, match):
+def test_evaluate_raises_for_what_waits(tmp_path, whamr_root, monkeypatch, capsys, extra,
+                                       error, match):
+    """Each refusal names its reason, in the exception or, for argparse's
+    ``p.error`` (as the JAX CLI refuses), on stderr."""
+    import re
+
     from sudo_rm_rf_tpu_torch.cli.evaluate import main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = _argv(_checkpoint(tmp_path, "relu"), "relu", whamr_root, WHAMR)
     if "--device" not in extra:
         argv += ["--device", "cpu"]
-    with pytest.raises(error, match=match):
+    with pytest.raises(error) as info:
         main(argv + extra)
+    assert re.search(match, f"{info.value} {capsys.readouterr().err}")
 
 
 def test_evaluate_takes_a_msgpack_checkpoint(tmp_path, capsys, whamr_root):

@@ -100,7 +100,8 @@ def test_overlap_and_add(step):
 def test_port_imports_no_jax_and_never_falls_back(tmp_path):
     """In a fresh interpreter, the whole port imports, runs a toy Improved
     and GroupComm forward in every form, separates a tiny wav through
-    ``sudo-torch-separate`` with each model type, trains one epoch through
+    ``sudo-torch-separate`` with each model type, separates through two
+    ``LocalShards`` of the exact long-form engine, trains one epoch through
     ``sudo-torch-train``, exports its msgpack checkpoint through
     ``sudo-torch-export`` and evaluates it on a hierarchical corpus
     (``--dataset AUGMENTED``), serves in bf16 and int8 and runs
@@ -140,6 +141,7 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
         import sudo_rm_rf_tpu_torch.bench_streaming as bench_streaming
         from sudo_rm_rf_tpu_torch.data import musdb, preprocessed, shards
         from sudo_rm_rf_tpu_torch.utils import progress, visualization
+        from sudo_rm_rf_tpu_torch.inference import sequence_parallel
 
         hp = dict(out_channels=8, in_channels=16, num_blocks=1, upsampling_depth=2,
                   enc_num_basis=8)
@@ -166,6 +168,9 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
             assert separate.main(argv) == 0
             assert os.path.exists(os.path.join(out, "mix_s2.wav"))
         assert uconv.fused_uconv_block.launches == 0
+        sp_est = sequence_parallel.SequenceParallelSeparator(
+            gc, sequence_parallel.LocalShards(2)).separate(np.zeros(900, np.float32))
+        assert sp_est.shape == (2, 900)
         root = synthetic.write_wham_corpus(os.path.join(tmp, "wham"), n_train=2,
                                            n_val=2, seconds=0.25)
         train_argv = ["--train", "WHAM", "--val", "WHAM", "--wham_root", root,

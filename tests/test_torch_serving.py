@@ -101,9 +101,10 @@ def test_separate_cli_matches_jax_cli(tmp_path):
         assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
 
 
-def test_separate_cli_takes_the_jax_mode_flag(tmp_path, monkeypatch):
+def test_separate_cli_takes_the_jax_mode_flag(tmp_path, monkeypatch, capsys):
     """A JAX argv with ``--mode overlap_add`` runs and writes the same files
-    as without it; ``--mode seq_parallel`` raises, naming its ROADMAP item."""
+    as without it; ``--mode seq_parallel`` with a type other than relu or
+    groupcomm_v2 is refused through argparse, as the JAX CLI refuses it."""
     model = models.get_model("relu", **HP, generator=torch.Generator().manual_seed(3))
     ckpt = str(tmp_path / "model.pt")
     torch.save(model.state_dict(), ckpt)
@@ -121,5 +122,9 @@ def test_separate_cli_takes_the_jax_mode_flag(tmp_path, monkeypatch):
         _, a = wavfile.read(os.path.join(tmp_path, "a", f"mix_s{s}.wav"))
         _, b = wavfile.read(os.path.join(tmp_path, "b", f"mix_s{s}.wav"))
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        separate_main(common + ["--out_dir", str(tmp_path / "c"), "--mode", "seq_parallel"])
+    with pytest.raises(SystemExit):
+        separate_main(common + ["--out_dir", str(tmp_path / "c"), "--mode", "seq_parallel",
+                                "--model_type", "causal"])
+    assert "--mode seq_parallel supports model_type 'relu' or 'groupcomm_v2'" in (
+        capsys.readouterr().err)
+    assert not os.path.exists(tmp_path / "c")
