@@ -158,14 +158,28 @@
    5) against ``uconv_block_reference`` (>= 80 dB on the block's change),
    its time, bound and yardstick; ``sudo-torch-separate --mode
    seq_parallel`` of a 60 s wav within 1 LSB of the Python API.
-20. Print JSON lines of the serving, training, evaluation, recipe,
-   augmented, reduced-precision, bench, causal, zoo, baseline, MUSDB and
-   long-form results, each phase's seconds, and one line of kernel results
-   (K1 with an fp32 and with a bf16 pyramid; the first with the AUGMENTED
-   evaluation's, the MUSDB separation's and the long-form passes' launches,
-   K1's time at the long-form block shape, and its 0 launches on the causal,
-   v1, attentive, baseline and MUSDB training paths and the n-shard body),
-   then
+20. Data and tensor parallelism over ``torch.distributed`` ranks at
+   U16/512 (``parallel/``), cuDNN deterministic: (a) one NCCL rank's DP
+   ``Trainer`` for 3 ``xla`` fp32 bs4 steps against the plain trainer with
+   the same draws (every param, the largest relative difference); two ranks
+   sharing the card over gloo (NCCL refuses two ranks on one device): (b) a
+   DP step (2 rows a rank) and a (data 1, model 2) step with storage and
+   compute TP under ``fma``, each against the one-process step (loss, grad
+   norm, params in dB), with each rank's step ms, the collectives' share of
+   it (``torch.profiler``) and its peak memory; (c) DP overlap-add of a
+   seeded 60 s mixture through K1 against the unsharded separator, K1
+   launches a rank; (d) ``sudo-torch-separate --mode seq_parallel`` over
+   the two ranks against the one-rank CLI (int16, 1 LSB); (e)
+   ``sudo-torch-train --n_model 2`` over the two ranks for one epoch,
+   rank 0's checkpoint loaded into a one-process model.
+21. Print JSON lines of the serving, training, evaluation, recipe,
+   augmented, reduced-precision, bench, causal, zoo, baseline, MUSDB,
+   long-form and parallel results, each phase's seconds, and one line of
+   kernel results (K1 with an fp32 and with a bf16 pyramid; the first with
+   the AUGMENTED evaluation's, the MUSDB separation's, the long-form passes'
+   and the DP overlap-add's launches, K1's time at the long-form block
+   shape, and its 0 launches on the causal, v1, attentive, baseline, MUSDB,
+   DP and TP training paths and the n-shard bodies), then
    ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
    exits non-zero. ``--only PHASE ...`` runs some phases (a rehearsal on
    the card, without the kernels and ok lines).
@@ -2538,9 +2552,472 @@ def longform_phase(torch, np, tmp: str, seed: int = 0, device: str = "cuda",
     return out
 
 
+# the parallel phase: the (data, model) grid of ranks at the bench's U16/512
+PARALLEL_STEPS = 3  # part (a): steps of the one-NCCL-rank DP trainer
+PARALLEL_TIMED = (1, 3)  # warm-up and timed steps of each part (b) step
+PARALLEL_PROFILED = 2  # steps of a part (b) step's profile
+PARALLEL_OLA_SECONDS = 60.0
+PARALLEL_TRAIN_CUT = dict(n_train=8, n_val=4, seconds=CHUNK_SECONDS)
+PARALLEL_MIN_PARAMS_DB = 80.0
+PARALLEL_LOSS_ABS = 1e-4  # JAX's tolerance of a sharded step's loss
+PARALLEL_NORM_REL = 1e-4
+PARALLEL_NCCL_REL = 1e-6  # part (a): one NCCL rank against the plain trainer
+# names of the collectives in a torch.profiler trace
+COLLECTIVE_EVENT = re.compile(r"^(gloo|nccl):|^ncclDevKernel|^ncclKernel", re.I)
+
+
+def _params_db(torch, got: dict, want: dict) -> float:
+    """Fidelity (dB) of every param of ``got`` against ``want``, together."""
+    num = sum(float((w.double() ** 2).sum()) for w in want.values())
+    err = sum(float(((got[k].double().cpu() - w.double()) ** 2).sum())
+              for k, w in want.items())
+    return float("inf") if err == 0.0 else 10 * math.log10(num / err)
+
+
+def _max_rel(torch, got: dict, want: dict) -> float:
+    """Largest difference of a param, relative to its largest element."""
+    return max(float((got[k].cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30))
+               for k, w in want.items())
+
+
+def _timed_steps(torch, step, device: str, warmup: int, reps: int,
+                 device_trace: bool = True, profiled: int = PARALLEL_PROFILED) -> dict:
+    """Median ms of ``step`` (CUDA events on the card, the host clock on the
+    CPU), and the share of the wall time the profiler puts in collectives
+    over ``profiled`` steps: gloo's and NCCL's own host events and NCCL's
+    kernels (the card is traced only with ``device_trace``); None where it
+    records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device.startswith("cuda")
+    t_timing = time.perf_counter()
+    if cuda:
+        ms = time_ms(torch, step, warmup=warmup, reps=reps)
+    else:
+        for _ in range(warmup):
+            step()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            step()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        ms = statistics.median(ts)
+    t_timing = time.perf_counter() - t_timing
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda and device_trace else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(profiled):
+            step()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    # the trace's raw events: building key_averages' event tree over the
+    # thousands of ops of a step took 7-20 s of host time a call
+    coll, names, t_read = 0.0, {}, time.perf_counter()
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if COLLECTIVE_EVENT.search(name):
+            ms_ = e.duration_ns() / 1e6
+            coll += ms_
+            names[name[:60]] = names.get(name[:60], 0.0) + ms_ / profiled
+    return dict(ms=ms, collective_share=(coll / wall) if names else None,
+                collective_ms_by_event=names, timing_s=t_timing, profile_s=wall / 1e3,
+                profile_read_s=time.perf_counter() - t_read)
+
+
+@contextlib.contextmanager
+def _launch_env(rank: int, world: int, port: int):
+    """Inside: the environment a torchrun launch on one host gives rank
+    ``rank`` of ``world`` (its rendezvous on localhost:``port``)."""
+    env = dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+               LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _parallel_rank(rank: int, world: int, tmp: str, cuda: bool, port: int) -> None:
+    """One of the two ranks of parts (b) to (e). Both ranks share the one
+    card over gloo (NCCL refuses two ranks on one device): the rank joins
+    through ``maybe_distributed_initialize(backend="gloo",
+    share_device=True)`` in a torchrun environment. Writes what it measured
+    to ``tmp/rank{rank}.json``."""
+    import torch
+
+    from sudo_rm_rf_tpu_torch.parallel import maybe_distributed_initialize, rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # as the parent's references
+    case = torch.load(os.path.join(tmp, "case.pt"), weights_only=False)
+    hp = case["hp"]
+    t_start = time.perf_counter()
+    with _launch_env(rank, world, port):
+        kind = "cuda" if cuda else "cpu"
+        if not maybe_distributed_initialize(backend="gloo", device=kind, share_device=True):
+            raise RuntimeError("the rank did not join its launch")
+        device = str(rank_device(kind, share_device=True))
+        return _parallel_rank_parts(rank, tmp, case, hp, device, t_start)
+
+
+def _parallel_rank_parts(rank, tmp, case, hp, device, t_start) -> None:
+    """Parts (b) to (e) on this rank, joined to its group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.cli.separate import main as separate_main
+    from sudo_rm_rf_tpu_torch.cli.train import main as train_main
+    from sudo_rm_rf_tpu_torch.inference import OverlapAddSeparator
+    from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+    from sudo_rm_rf_tpu_torch.parallel import make_mesh
+    from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig
+
+    out = {"backend": dist.get_backend(), "device": device,
+           "part_seconds": {"init": time.perf_counter() - t_start}}
+    t_part = time.perf_counter()
+
+    def part_done(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["part_seconds"][name] = now - t_part
+        t_part = now
+
+    try:
+        # (b) a DP step (2 rows a rank) and a (data 1, model 2) step with
+        # storage and compute TP, each from the one-process step's weights,
+        # batch and draws
+        batch = torch.from_numpy(case["batch"]).to(device)
+        U.fused_uconv_block.launches = 0
+        for name, (n_data, n_model) in (("dp", (2, 1)), ("tp", (1, 2))):
+            mesh = make_mesh(n_data, n_model)
+            model = models.get_model("relu", **hp, block_impl="fma", device=device,
+                                     tp_mesh=mesh if n_model > 1 else None)
+            model.load_state_dict(case["weights"])
+            tr = Trainer(model, TrainerConfig(shard_params=n_model > 1), mesh=mesh)
+            if device.startswith("cuda"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            state = tr.init_state()
+            part_done(f"b_{name}_build")
+            _, m = tr.train_step(state, batch, case["draws"])
+            if device.startswith("cuda"):
+                torch.cuda.synchronize()
+            part_done(f"b_{name}_first_step")
+            whole = tr.whole_state_dict()
+            row = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                       params_db=_params_db(torch, whole, case["after"]),
+                       update_db=_params_db(
+                           torch, {k: whole[k].cpu() - case["weights"][k] for k in whole},
+                           {k: case["after"][k] - case["weights"][k] for k in whole}),
+                       sharded=sorted(tr.shards.shapes) if tr.shards else [])
+            # two processes on one card trace the host only: the gloo
+            # collectives are host events
+            part_done(f"b_{name}_check")
+            row.update(_timed_steps(torch, lambda: tr.train_step(state, batch, case["draws"]),
+                                    device, *PARALLEL_TIMED, device_trace=False))
+            row["peak_mib"] = (torch.cuda.max_memory_allocated() / 2**20
+                               if device.startswith("cuda") else None)
+            out[name] = row
+            part_done(f"b_{name}_timed")
+            del model, tr, state
+            if device.startswith("cuda"):
+                torch.cuda.empty_cache()
+        out["train_steps_k1"] = U.fused_uconv_block.launches
+        # (c) DP overlap-add: each rank runs its chunks through K1
+        mesh = make_mesh(2, 1)
+        model = models.get_model("relu", **hp, device=device).eval()
+        model.load_state_dict(case["weights"])
+        sep = OverlapAddSeparator(model, chunk_samples=case["chunk"],
+                                  batch_chunks=case["batch_chunks"], mesh=mesh,
+                                  forward_fn=functools.partial(improved_forward_fast, model))
+        U.fused_uconv_block.launches = 0
+        t0 = time.perf_counter()
+        est = sep.separate(case["ola_mix"])
+        ola_s = time.perf_counter() - t0
+        part_done("c")
+        out["ola"] = dict(k1_launches=U.fused_uconv_block.launches, seconds=ola_s,
+                          max_abs=float(np.abs(est - case["ola_ref"]).max()),
+                          ref_peak=float(np.abs(case["ola_ref"]).max()))
+        del model, sep
+        # (d) sudo-torch-separate --mode seq_parallel over the two ranks
+        U.fused_uconv_block.launches = 0
+        t0 = time.perf_counter()
+        run_cli(separate_main, case["separate_argv"])
+        out["seq_cli"] = dict(seconds=time.perf_counter() - t0,
+                              k1_launches=U.fused_uconv_block.launches)
+        part_done("d")
+        # (e) sudo-torch-train --n_model 2 over the two ranks
+        U.fused_uconv_block.launches = 0
+        t0 = time.perf_counter()
+        run_cli(train_main, case["train_argv"])
+        out["train_cli"] = dict(seconds=time.perf_counter() - t0,
+                                k1_launches=U.fused_uconv_block.launches)
+        part_done("e")
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(torch, np, tmp: str, hp: dict = FLAGSHIP, device: str = "cuda",
+                   ola_seconds: float = PARALLEL_OLA_SECONDS,
+                   train_cut: dict = PARALLEL_TRAIN_CUT) -> dict:
+    """Data and tensor parallelism over ``torch.distributed`` ranks at ``hp``
+    (the bench's U16/512), seeded weights, WHAM bs4 4 s batches:
+
+    (a) one NCCL rank: a DP ``Trainer`` (fp32, ``xla`` blocks) for
+        PARALLEL_STEPS steps against the plain trainer with the same draws
+        (loss and every param; the largest relative difference printed);
+    (b) two ranks on the card (gloo: NCCL refuses two ranks on one device):
+        a DP step (2 rows a rank) and a (data 1, model 2) step with storage
+        and compute TP under ``fma``, each against the one-process step
+        (loss, grad norm, params in dB), with each rank's step ms, the
+        collectives' share of it and its peak memory;
+    (c) DP overlap-add through K1 on the two ranks for a seeded
+        ``ola_seconds`` mixture against the unsharded separator, K1 launches
+        a rank;
+    (d) ``sudo-torch-separate --mode seq_parallel`` over the two ranks on an
+        ``ola_seconds`` wav against the one-rank CLI (int16, 1 LSB);
+    (e) ``sudo-torch-train --n_model 2`` over the two ranks for one epoch on
+        a synthetic WHAM corpus cut to ``train_cut``; rank 0's checkpoint
+        loads into a one-process port model.
+    Prints the backend of each part; runs with cuDNN's deterministic
+    algorithms. Every failure raises."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from scipy.io import wavfile
+
+    from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.cli.separate import main as separate_main
+    from sudo_rm_rf_tpu_torch.data.synthetic import write_wham_corpus
+    from sudo_rm_rf_tpu_torch.inference import OverlapAddSeparator
+    from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+    from sudo_rm_rf_tpu_torch.parallel import make_mesh, maybe_distributed_initialize
+    from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig, draw_remix
+
+    cuda = device == "cuda"
+    rank_device = "cuda:0" if cuda else "cpu"
+    out = {}
+    weights = models.get_model("relu", **hp, generator=torch.Generator().manual_seed(0)
+                               ).state_dict()
+    t = int(CHUNK_SECONDS * FS)
+    batch = _brown_batch(np, BATCH, 2, t, seed=11)
+    draws = draw_remix(torch.Generator().manual_seed(7), BATCH, 2)
+
+    # cuDNN's deterministic algorithms, here and in the ranks: its default
+    # backward convolutions sum in a run-dependent order, which Adam's first
+    # steps amplify where a gradient is near 0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    # (a) one NCCL rank, joined as a torchrun launch of one rank joins: the
+    # DP trainer against the plain one
+    with _launch_env(0, 1, _free_port()):
+        if not maybe_distributed_initialize(device=device):
+            raise RuntimeError("(a) the rank did not join its launch")
+    backend = dist.get_backend()
+    try:
+        mesh = make_mesh()
+        runs = {}
+        U.fused_uconv_block.launches = 0
+        for name, m_ in (("dp", mesh), ("plain", None)):
+            model = models.get_model("relu", **hp, block_impl="xla", device=device)
+            model.load_state_dict(weights)
+            tr = Trainer(model, TrainerConfig(), mesh=m_)
+            state, gen, losses = tr.init_state(), torch.Generator().manual_seed(3), []
+            on_card = torch.from_numpy(batch).to(device)
+            for _ in range(PARALLEL_STEPS):
+                _, m = tr.train_step(state, on_card, draw_remix(gen, BATCH, 2))
+                losses.append(float(m["loss"]))
+            runs[name] = (losses, {k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+            if name == "dp":
+                runs["timed"] = _timed_steps(
+                    torch, lambda: tr.train_step(state, on_card, draws), rank_device,
+                    *PARALLEL_TIMED)
+            del model, tr, state
+        out["train_steps_k1"] = U.fused_uconv_block.launches
+    finally:
+        dist.destroy_process_group()
+    loss_diff = max(abs(a - b) for a, b in zip(runs["dp"][0], runs["plain"][0]))
+    rel = _max_rel(torch, runs["dp"][1], runs["plain"][1])
+    out["a"] = dict(backend=backend, losses=runs["dp"][0], loss_abs_diff=loss_diff,
+                    params_max_rel=rel, **runs["timed"])
+    print(f"parallel (a) one {backend} rank, DP Trainer U16/512 bs4 fp32 xla, "
+          f"{PARALLEL_STEPS} steps against the plain Trainer with the same draws (cuDNN "
+          f"deterministic): losses "
+          f"{', '.join(f'{v:.6f}' for v in runs['dp'][0])}, largest loss difference "
+          f"{loss_diff:.3e}, largest relative param difference {rel:.3e}; a step "
+          f"{runs['timed']['ms']:.3f} ms, collectives "
+          + (f"{runs['timed']['collective_share']:.2%}" if runs["timed"]["collective_share"]
+             is not None else "not in the trace")
+          + f" ({runs['timed']['collective_ms_by_event']})")
+    if loss_diff > PARALLEL_LOSS_ABS or rel > PARALLEL_NCCL_REL:
+        raise RuntimeError(f"(a) the DP trainer parts from the plain one: {out['a']}")
+
+    # the one-process references of (b) to (d)
+    model = models.get_model("relu", **hp, block_impl="fma", device=device)
+    model.load_state_dict(weights)
+    tr = Trainer(model, TrainerConfig())
+    state, on_card = tr.init_state(), torch.from_numpy(batch).to(device)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _, m = tr.train_step(state, on_card, draws)
+    one = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+    if abs(one["loss"]) >= TrainerConfig().loss_clamp:
+        raise RuntimeError("the loss clamp saturated: the comparison would be vacuous")
+    after = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    timed = _timed_steps(torch, lambda: tr.train_step(state, on_card, draws), rank_device,
+                         *PARALLEL_TIMED)
+    print(f"parallel (b) the one-process reference, U16/512 bs4 fp32 fma: loss "
+          f"{one['loss']:.6f}, grad norm {one['grad_norm']:.6f}; a step {timed['ms']:.3f} ms "
+          f"(median of {PARALLEL_TIMED[1]}), peak "
+          + (f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB" if cuda else "n/a"))
+    one.update(ms=timed["ms"], peak_mib=torch.cuda.max_memory_allocated() / 2**20
+               if cuda else None)
+    del model, tr, state
+    n = int(ola_seconds * FS)
+    rng = np.random.default_rng(5)
+    tt = np.arange(n) / FS
+    ola_mix = (0.3 * np.sin(2 * np.pi * 220 * tt) + 0.2 * np.sin(2 * np.pi * 1330 * tt)
+               + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    model = models.get_model("relu", **hp, device=device).eval()
+    model.load_state_dict(weights)
+    ola_ref = OverlapAddSeparator(model, chunk_samples=t, batch_chunks=BATCH,
+                                  forward_fn=functools.partial(improved_forward_fast, model)
+                                  ).separate(ola_mix)
+    del model
+    ckpt = os.path.join(tmp, "weights.pt")
+    torch.save(weights, ckpt)
+    wav = os.path.join(tmp, "long.wav")
+    wavfile.write(wav, FS, (ola_mix / np.abs(ola_mix).max() * 0.9 * 32767).astype(np.int16))
+    sep_argv = ["--checkpoint", ckpt, "--input", wav, "--mode", "seq_parallel", "-fs", str(FS),
+                "--device", rank_device, *hp_argv(hp)]
+    U.fused_uconv_block.launches = 0
+    run_cli(separate_main, sep_argv + ["--out_dir", os.path.join(tmp, "sep1")])
+    one_rank_launches = U.fused_uconv_block.launches
+    root = write_wham_corpus(os.path.join(tmp, "wham"), train_cut["n_train"],
+                             train_cut["n_val"], train_cut["seconds"], FS, seed=0)
+    train_argv = [*_train_argv("relu", hp, root, tmp, "parallel", rank_device),
+                  "--n_model", "2", "--n_epochs", "1", "--n_jobs", "1"]
+    torch.save(dict(hp=hp, weights=weights, batch=batch, draws=draws, after=after,
+                    ola_mix=ola_mix, ola_ref=ola_ref, chunk=t, batch_chunks=BATCH,
+                    separate_argv=sep_argv + ["--out_dir", os.path.join(tmp, "sep2")],
+                    train_argv=train_argv), os.path.join(tmp, "case.pt"))
+
+    # (b) to (e) on two ranks
+    t0 = time.perf_counter()
+    mp.start_processes(_parallel_rank, nprocs=2, start_method="spawn", join=True,
+                       args=(2, tmp, cuda, _free_port()))
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    out["ranks_seconds"] = ranks_s
+    print(f"parallel: the two ranks took {ranks_s:.1f} s (spawn and CUDA init included); "
+          "seconds by part: " + "; ".join(
+              f"rank {r} " + ", ".join(f"{k} {v:.1f}" for k, v in rk["part_seconds"].items())
+              for r, rk in enumerate(ranks)))
+    out["b"] = {}
+    for name, label in (("dp", "DP step, 2 rows a rank"),
+                        ("tp", "(data 1, model 2) step, storage + compute TP, fma")):
+        rows = [r[name] for r in ranks]
+        out["b"][name] = dict(backend=ranks[0]["backend"], one_process=one, ranks=rows)
+        for r, row in enumerate(rows):
+            share = row["collective_share"]
+            print(f"parallel (b) {ranks[0]['backend']} rank {r} of 2 on {rank_device}, {label}: "
+                  f"loss {row['loss']:.6f} (one process {one['loss']:.6f}), grad norm "
+                  f"{row['grad_norm']:.6f} ({one['grad_norm']:.6f}), params "
+                  f"{row['params_db']:.2f} dB, update {row['update_db']:.2f} dB from the "
+                  f"one-process step; step {row['ms']:.3f} ms (median of "
+                  f"{PARALLEL_TIMED[1]}), collectives "
+                  + (f"{share:.2%}" if share is not None else "not in the trace")
+                  + f" {row['collective_ms_by_event']}, peak "
+                  + (f"{row['peak_mib']:.0f} MiB" if row["peak_mib"] is not None else "n/a")
+                  + (f"; sharded {len(row['sharded'])} params" if row["sharded"] else ""))
+            if (abs(row["loss"] - one["loss"]) > PARALLEL_LOSS_ABS
+                    or abs(row["grad_norm"] - one["grad_norm"]) > PARALLEL_NORM_REL * one[
+                        "grad_norm"] or row["params_db"] < PARALLEL_MIN_PARAMS_DB):
+                raise RuntimeError(f"(b) {name} rank {r} parts from the one-process step: {row}")
+    want = n_forward_batches(n, t, BATCH) * hp["num_blocks"]
+    for r, rk in enumerate(ranks):
+        o = rk["ola"]
+        print(f"parallel (c) DP overlap-add through K1, {ola_seconds:.0f} s mixture, rank {r} "
+              f"of 2 ({rk['backend']}, {rank_device}): {o['seconds']:.3f} s, "
+              f"{o['k1_launches']} K1 launches (the unsharded separator's batches x blocks: "
+              f"{want}), largest difference from the unsharded separator {o['max_abs']:.3e} "
+              f"(its peak {o['ref_peak']:.3f})")
+        if cuda and o["k1_launches"] != want:
+            raise RuntimeError(f"(c) rank {r} launched K1 {o['k1_launches']} times, want {want}")
+        if not o["max_abs"] <= 1e-4 * max(1.0, o["ref_peak"]):
+            raise RuntimeError(f"(c) rank {r} parts from the unsharded separator: {o}")
+    out["c"] = [rk["ola"] for rk in ranks]
+    lsb = 0
+    for s in (1, 2):
+        a = wavfile.read(os.path.join(tmp, "sep1", f"long_s{s}.wav"))[1].astype(np.int32)
+        b = wavfile.read(os.path.join(tmp, "sep2", f"long_s{s}.wav"))[1].astype(np.int32)
+        if a.shape != b.shape:
+            raise RuntimeError(f"(d) shapes {a.shape} and {b.shape}")
+        lsb = max(lsb, int(np.abs(a - b).max()))
+    out["d"] = dict(backend=ranks[0]["backend"], lsb=lsb, one_rank_k1_launches=one_rank_launches,
+                    ranks=[rk["seq_cli"] for rk in ranks])
+    print(f"parallel (d) sudo-torch-separate --mode seq_parallel, {ola_seconds:.0f} s wav, over "
+          f"2 {ranks[0]['backend']} ranks: "
+          + ", ".join(f"rank {r} {rk['seq_cli']['seconds']:.2f} s, "
+                      f"{rk['seq_cli']['k1_launches']} K1 launches"
+                      for r, rk in enumerate(ranks))
+          + f"; the one-rank CLI {one_rank_launches} K1 launches; {lsb} LSB apart")
+    if lsb > 1:
+        raise RuntimeError(f"(d) the 2-rank seq_parallel CLI is {lsb} LSB from one rank's")
+    ck = os.path.join(tmp, "ckpt", "parallel")
+    names = sorted(os.listdir(ck))
+    last = os.path.join(ck, "relu_epoch_1")
+    if "relu_epoch_1" not in names:
+        raise RuntimeError(f"(e) no checkpoint relu_epoch_1 in {names}")
+    loaded = models.load_checkpoint_model("relu", hp, last, device)
+    with torch.no_grad():
+        y = improved_forward_fast(loaded, torch.from_numpy(batch[:1, :1]).to(device), impl="fma")
+    if not bool(torch.isfinite(y).all()):
+        raise RuntimeError("(e) rank 0's checkpoint gives a non-finite forward")
+    counts = checkpoint_counts(last)
+    out["e"] = dict(backend=ranks[0]["backend"], checkpoints=names, counts=counts,
+                    ranks=[rk["train_cli"] for rk in ranks])
+    print(f"parallel (e) sudo-torch-train --n_model 2 over 2 {ranks[0]['backend']} ranks, one "
+          f"epoch of {train_cut['n_train'] // BATCH} steps: "
+          + ", ".join(f"rank {r} {rk['train_cli']['seconds']:.1f} s" for r, rk in enumerate(ranks))
+          + f"; rank 0 wrote {names}, step/Adam/schedule counts {counts}; it loads into a "
+          f"one-process model (finite forward)")
+    out["train_steps_k1"] += sum(rk["train_steps_k1"] for rk in ranks)
+    if out["train_steps_k1"] or any(rk["train_cli"]["k1_launches"]
+                                    or rk["seq_cli"]["k1_launches"] for rk in ranks):
+        raise RuntimeError("the DP or TP training or the n-rank shard body launched K1")
+    torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
 PHASES = ("k1", "k1_bf16", "float64", "serve", "train", "evaluate", "recipes", "augmented",
           "bf16", "int8", "bench", "causal", "zoo", "zoo_cli", "baselines", "musdb",
-          "longform")
+          "longform", "parallel")
 
 
 def main(argv=None) -> int:
@@ -2734,6 +3211,15 @@ def main(argv=None) -> int:
         return out
 
     phase("longform", longform)
+
+    # 20. data and tensor parallelism over torch.distributed ranks
+    def parallel():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = parallel_phase(torch, np, tmp)
+        print(json.dumps({"parallel": out}))
+        return out
+
+    phase("parallel", parallel)
     print(f"phase seconds: {json.dumps(seconds)}")
     if set(args.only) != set(PHASES):
         print(f"chip_smoke: ran {args.only} only; no kernels line and no ok line")
@@ -2785,6 +3271,16 @@ def main(argv=None) -> int:
             r["k1_launches"] for f in res["longform"]["families"].values()
             for k, r in f["runs"].items() if not k.startswith("kernel")),
         "launches_longform_cli": res["longform"]["cli"]["k1_launches"],
+        # DP overlap-add over two ranks runs its chunks through K1 on each
+        # rank; the DP and TP train steps, the n-rank shard body and the TP
+        # training CLI launch none
+        "launches_parallel_dp_overlap_add_per_rank": [
+            r["k1_launches"] for r in res["parallel"]["c"]],
+        "launches_parallel_train_steps": res["parallel"]["train_steps_k1"],
+        "launches_parallel_shard_body": sum(
+            r["k1_launches"] for r in res["parallel"]["d"]["ranks"]),
+        "launches_parallel_train_cli": sum(
+            r["k1_launches"] for r in res["parallel"]["e"]["ranks"]),
         "longform_shape": res["longform"]["k1_long"],
         **flagship, "gc_shape": k1["groupcomm"], "u36_shape": k1["u36"],
         "float64_check": res["float64"],

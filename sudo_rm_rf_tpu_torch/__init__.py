@@ -12,7 +12,10 @@ ops        conv1d, conv_transpose1d, GlobLN, padding, and the U-ConvBlock with
            its hand-written Hopper kernel (csrc/uconv.cu).
 models     The Improved SuDoRM-RF ("relu") and GroupComm v2, and their
            serving forwards.
-inference  Overlap-add chunked long-recording separation.
+inference  Overlap-add chunked and exact (time-sharded) long-recording
+           separation, streaming.
+parallel   Data and tensor parallelism over torch.distributed ranks: the
+           (data, model) mesh, its collectives and sharding rules.
 convert    Torch checkpoints, and the JAX package's param trees and train
            states into the port.
 losses     PIT SI-SDR, the stabilized SI-SDR, zero-reference SNR, BSS-eval,

@@ -61,8 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "master params); bfloat16 is the fastest measured "
                         "training mode")
     p.add_argument("--n_model", type=int, default=1,
-                   help="model-parallel size; the port takes 1 only "
-                        "(ROADMAP queue 1, item 10)")
+                   help="model-group size of the (data, model) grid of ranks of a "
+                        "torchrun launch (>1: storage TP; + compute TP for relu with "
+                        "block_impl fma); the other ranks split the batch")
     p.add_argument("--grad_accum_steps", type=int, default=1,
                    help="microbatches per optimizer step (large effective "
                         "batches beyond device memory)")

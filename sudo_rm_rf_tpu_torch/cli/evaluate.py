@@ -19,8 +19,11 @@ per example as one JSON line (the JAX CLI's keys):
 
 ``--full_length`` scores whole recordings (padded to the split's longest)
 through the overlap-add separator, or with ``--full_length_mode
-seq_parallel`` in one exact pass (``inference.SequenceParallelSeparator``,
-one rank on ``--device``); ``--batch_size`` chunks a forward.
+seq_parallel`` in one exact pass (``inference.SequenceParallelSeparator``);
+``--batch_size`` chunks a forward. Under a torchrun launch every rank reads
+the split: ``seq_parallel`` runs one time shard a rank, ``overlap_add``
+splits each chunk batch over the ranks, the crops run on every rank, and
+rank 0 prints (and pickles) the results.
 ``--dataset AUGMENTED --dataset_paths ROOT ...`` scores ``--n_samples``
 (default 1000) fixed mixtures of a hierarchical corpus (seed 42, as the
 JAX CLI draws them).
@@ -65,8 +68,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["overlap_add", "seq_parallel"],
                    help="whole-recording engine: overlap-add chunking, or "
                         "seq_parallel, one exact pass (relu, groupcomm_v2, causal, "
-                        "attention, attention_v2) run as one rank on --device (a launch "
-                        "over several ranks waits for ROADMAP queue 1, item 4)")
+                        "attention, attention_v2); under a torchrun launch one time "
+                        "shard a rank (overlap_add: each chunk batch split over the "
+                        "ranks), and rank 0 prints the results")
     p.add_argument("--full_length", action="store_true",
                    help="evaluate whole recordings through the engine of "
                         "--full_length_mode instead of fixed-length crops")
@@ -164,15 +168,9 @@ def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
 
-    import numpy as np
     import torch
 
-    from sudo_rm_rf_tpu_torch import losses, models
-    from sudo_rm_rf_tpu_torch.data.setup import (
-        create_augmented_loader,
-        create_loader_for_simple_dataset,
-    )
-    from sudo_rm_rf_tpu_torch.utils.benchmark import serving_forward
+    from sudo_rm_rf_tpu_torch import models
 
     models.check_cli_model_type(args.model_type)
     if args.dataset == "AUGMENTED" and not args.dataset_paths:
@@ -183,7 +181,33 @@ def main(argv=None):
         if args.model_type not in SEQ_TYPES:
             p.error(f"--full_length_mode seq_parallel supports model_type in {SEQ_TYPES} "
                     "(attention_v3 falls back to overlap_add)")
-    device = torch.device(args.device)
+
+    import torch.distributed as dist
+
+    from sudo_rm_rf_tpu_torch.inference import make_seq_comm
+    from sudo_rm_rf_tpu_torch.parallel import launch_group, make_mesh, rank_device
+
+    with launch_group(args.device) as joined:
+        if joined:
+            return _evaluate(args, rank_device(args.device), dist.get_rank() == 0,
+                             make_seq_comm(), make_mesh())
+        return _evaluate(args, torch.device(args.device), True, None, None)
+
+
+def _evaluate(args, device, lead: bool, comm, mesh) -> int:
+    """Evaluate on ``device``; ``comm`` / ``mesh``: a launch's communicator
+    and mesh for the whole-recording engines (None in one process);
+    ``lead``: this rank prints and writes the results."""
+    import numpy as np
+    import torch
+
+    from sudo_rm_rf_tpu_torch import losses, models
+    from sudo_rm_rf_tpu_torch.data.setup import (
+        create_augmented_loader,
+        create_loader_for_simple_dataset,
+    )
+    from sudo_rm_rf_tpu_torch.utils.benchmark import serving_forward
+
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available")
 
@@ -237,14 +261,15 @@ def main(argv=None):
     if args.full_length and args.full_length_mode == "seq_parallel":
         from sudo_rm_rf_tpu_torch.inference import SequenceParallelSeparator
 
-        ola = SequenceParallelSeparator(model, mixture_consistency=args.mixture_consistency)
+        ola = SequenceParallelSeparator(model, comm=comm,
+                                        mixture_consistency=args.mixture_consistency)
     elif args.full_length:
         from sudo_rm_rf_tpu_torch.inference import OverlapAddSeparator
 
         ola = OverlapAddSeparator(
             model, chunk_samples=int(args.timelength * args.fs),
             num_sources=args.num_sources, batch_chunks=args.batch_size,
-            mixture_consistency=args.mixture_consistency, forward_fn=separate,
+            mixture_consistency=args.mixture_consistency, forward_fn=separate, mesh=mesh,
         )
 
     results = {"si_sdr": [], "si_sdri": [], "sdr": [], "sdri": [], "sir": [], "sar": []}
@@ -288,6 +313,8 @@ def main(argv=None):
                 "filters; museval uses 512 - do not compare absolutes "
                 "against museval-based tables"
             )
+    if not lead:
+        return 0
     print(json.dumps(summary))
     if args.out_pickle:
         with open(args.out_pickle, "wb") as fh:

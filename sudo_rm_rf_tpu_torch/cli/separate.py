@@ -3,7 +3,13 @@
 Counterpart of ``sudo_rm_rf_tpu/cli/separate.py``: ``--mode overlap_add``
 (the default) chunks each recording; ``--mode seq_parallel`` separates it in
 one exact pass (``inference.SequenceParallelSeparator``, model types
-``relu`` and ``groupcomm_v2`` as the JAX CLI), on one rank on ``--device``.
+``relu`` and ``groupcomm_v2`` as the JAX CLI). One rank runs that pass
+through the U-ConvBlock kernel (K1) on a card. Under a torchrun launch
+(``torchrun --nproc_per_node N -m sudo_rm_rf_tpu_torch.cli.separate ...``;
+NCCL on the cards, gloo with ``--device cpu``) every rank reads every file:
+``seq_parallel`` runs the n-shard body with one time shard a rank, and
+``overlap_add`` splits each chunk batch over the ranks (each runs its chunks
+through the serving forward, K1 on a card); rank 0 alone writes the files.
 Takes a ``.pt`` holding a state_dict (the published format, or one written
 by ``sudo-torch-export``) or a whole pickled module, or a msgpack checkpoint
 of either package (bare params or a whole ``TrainState``; the file's first
@@ -43,9 +49,9 @@ def main(argv=None):
     p.add_argument("--mode", default="overlap_add",
                    choices=["overlap_add", "seq_parallel"],
                    help="overlap_add: COLA chunking (any model); seq_parallel: one "
-                        "exact pass over the whole recording (relu, groupcomm_v2), run as "
-                        "one rank on --device (a launch over several ranks waits for "
-                        "ROADMAP queue 1, item 4)")
+                        "exact pass over the whole recording (relu, groupcomm_v2): on one "
+                        "rank through K1 on a card, under a torchrun launch one time shard "
+                        "a rank (rank 0 writes the files)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on; never falls back to the CPU")
     p.add_argument("--reference_root", default=None,
@@ -63,13 +69,30 @@ def main(argv=None):
         p.error("--mode seq_parallel supports model_type 'relu' or 'groupcomm_v2'")
 
     import torch
+    import torch.distributed as dist
+
+    from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.inference import make_seq_comm
+    from sudo_rm_rf_tpu_torch.parallel import launch_group, make_mesh, rank_device
+
+    models.check_cli_model_type(args.model_type)
+    with launch_group(args.device) as joined:
+        if joined:
+            return _separate(args, rank_device(args.device), dist.get_rank() == 0,
+                             make_seq_comm(), make_mesh())
+        return _separate(args, torch.device(args.device), True, None, None)
+
+
+def _separate(args, device, write: bool, comm, mesh) -> int:
+    """Separate every input on ``device``; ``comm`` / ``mesh``: a launch's
+    communicator and mesh (None in one process); ``write``: this rank
+    writes the files."""
+    import torch
 
     from sudo_rm_rf_tpu_torch import models
     from sudo_rm_rf_tpu_torch.inference import SequenceParallelSeparator, separate_file
     from sudo_rm_rf_tpu_torch.utils.benchmark import serving_forward
 
-    models.check_cli_model_type(args.model_type)
-    device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available")
 
@@ -86,15 +109,16 @@ def main(argv=None):
 
     if args.mode == "seq_parallel":
         kwargs = dict(separator=SequenceParallelSeparator(
-            model, mixture_consistency=args.mixture_consistency))
+            model, comm=comm, mixture_consistency=args.mixture_consistency))
     else:
         kwargs = dict(chunk_seconds=args.chunk_seconds, batch_chunks=args.batch_chunks,
                       mixture_consistency=args.mixture_consistency,
-                      forward_fn=functools.partial(serving_forward(model), model))
+                      forward_fn=functools.partial(serving_forward(model), model), mesh=mesh)
     for path in args.input:
         outs = separate_file(model, path, args.out_dir, fs=args.fs,
-                             num_sources=args.num_sources, **kwargs)
-        print(f"{path} -> {outs}")
+                             num_sources=args.num_sources, write=write, **kwargs)
+        if write:
+            print(f"{path} -> {outs}")
     return 0
 
 

@@ -11,6 +11,14 @@ Train Improved SuDoRM-RF U16/512 on WHAM sep_clean on the GPU:
 
 ``--device`` defaults to ``cuda`` and raises where there is no CUDA device;
 ``--device cpu`` trains on the CPU.
+
+Over several ranks, one process a rank, launch it with torchrun: NCCL on the
+cards (rank ``r`` of a host on ``cuda:LOCAL_RANK``), gloo with ``--device
+cpu``. ``--n_model`` ranks share each model (tensor parallelism), the rest
+split the batch:
+
+    torchrun --nproc_per_node 8 -m sudo_rm_rf_tpu_torch.cli.train \
+        --n_model 2 -bs 8 ... --wham_root /mnt/data/wham
 """
 
 from __future__ import annotations
@@ -32,19 +40,29 @@ def main(argv=None):
             if name == "musdb":  # one flag covers both rate variants
                 os.environ["SUDO_TPU_MUSDB8K_ROOT"] = root
 
+    import torch.distributed as dist
+
+    from sudo_rm_rf_tpu_torch.parallel import launch_group, rank_device
     from sudo_rm_rf_tpu_torch.train.experiment import run_experiment
     from sudo_rm_rf_tpu_torch.utils import ExperimentLogger
 
-    logger = ExperimentLogger(
-        args.experiment_logs_path, config.experiment_name,
-        tags=list(config.tags), use_comet=args.use_comet,
-        comet_project=args.project_name,
-    )
-    try:
-        run_experiment(config, logger=logger, resume=args.resume,
-                       log_audio_every=args.log_audio_every, device=args.device)
-    finally:
-        logger.close()
+    # under torchrun: join the launch's process group first, as the JAX CLI
+    # calls jax.distributed.initialize
+    with launch_group(args.device) as joined:
+        logger = None
+        if not joined or dist.get_rank() == 0:
+            logger = ExperimentLogger(
+                args.experiment_logs_path, config.experiment_name,
+                tags=list(config.tags), use_comet=args.use_comet,
+                comet_project=args.project_name,
+            )
+        try:
+            run_experiment(config, logger=logger, resume=args.resume,
+                           log_audio_every=args.log_audio_every,
+                           device=rank_device(args.device))
+        finally:
+            if logger is not None:
+                logger.close()
     return 0
 
 

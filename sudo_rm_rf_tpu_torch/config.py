@@ -88,11 +88,13 @@ class ModelConfig:
     # blocks are a plain loop either way
     scan_blocks: bool = False
 
-    def build(self, device=None, generator=None):
+    def build(self, device=None, generator=None, tp_mesh=None):
         """The port's model for this config, its params drawn from
         ``generator`` and placed on ``device``. A baseline raises the
         ``ValueError`` of ``models.check_cli_model_type``: this config holds
-        the SuDoRM-RF hyperparameters only."""
+        the SuDoRM-RF hyperparameters only. ``tp_mesh`` (a
+        ``parallel.Mesh``) splits the blocks' channels over its model group
+        (relu/improved with block_impl 'fma' only, as JAX's)."""
         from sudo_rm_rf_tpu_torch import models
 
         models.check_cli_model_type(self.model_type)
@@ -107,7 +109,12 @@ class ModelConfig:
         )
         if self.model_type in ("relu", "improved"):
             kwargs.update(block_impl=self.block_impl, remat_blocks=self.remat_blocks)
-        elif self.model_type == "groupcomm_v2":
+            if tp_mesh is not None:
+                kwargs.update(tp_mesh=tp_mesh)
+        elif tp_mesh is not None:
+            raise ValueError(f"tp_mesh: compute tensor parallelism takes model_type "
+                             f"relu/improved, not {self.model_type!r}")
+        if self.model_type == "groupcomm_v2":
             kwargs.update(group_size=self.group_size,
                           in_audio_channels=self.in_audio_channels,
                           block_impl=self.block_impl, remat_blocks=self.remat_blocks)
@@ -172,7 +179,10 @@ class TrainConfig:
     # stop after this many epochs without a new best on the primary val
     # metric (0 = train all n_epochs)
     early_stop_patience: int = 0
-    n_model: int = 1  # > 1 (tensor parallelism) waits
+    # model-group size of the (data, model) grid of ranks: > 1 stores the
+    # large params as row shards over it (storage TP) and, for relu/improved
+    # models with block_impl 'fma', splits the blocks' channels (compute TP)
+    n_model: int = 1
     save_checkpoint_every: int = 10
     checkpoints_path: str = field(default_factory=lambda: paths.checkpoints)
     seed: int = 0

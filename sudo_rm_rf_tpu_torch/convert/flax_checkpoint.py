@@ -21,6 +21,7 @@ Adam's ``mu``/``nu``/``count`` are ``torch.optim.Adam``'s ``exp_avg``,
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from sudo_rm_rf_tpu_torch.convert import msgpack_format
 from sudo_rm_rf_tpu_torch.convert.jax_params import load_jax_params, load_jax_train_state
@@ -68,15 +69,17 @@ def load_model_from_checkpoint(path: str, model):
     return load_jax_params(model, load_params_from_checkpoint(path))
 
 
-def load_train_state_from_checkpoint(path: str, model, optimizer):
+def load_train_state_from_checkpoint(path: str, model, optimizer, shards=None):
     """A JAX ``TrainState`` file into the port: params into ``model``, Adam's
     moments and count into ``optimizer`` (a ``torch.optim.Adam`` over
-    ``model.parameters()``). Returns the port's ``TrainState``."""
+    ``model.parameters()``); with ``shards`` (a ``parallel.RowShards``) each
+    sharded param and its moments as this rank's rows. Returns the port's
+    ``TrainState``."""
     tree = read_checkpoint(path)
     if not _is_train_state(tree):
         raise ValueError(f"{path} holds bare params, not a TrainState")
     return load_jax_train_state(model, optimizer, tree["params"], tree["opt_state"],
-                                int(tree["step"]))
+                                int(tree["step"]), shards=shards)
 
 
 def _insert(tree: dict, path, value) -> None:
@@ -87,16 +90,20 @@ def _insert(tree: dict, path, value) -> None:
 
 def train_state_to_flax(state) -> dict:
     """The state dict of the JAX trainer's ``TrainState`` for a port
-    ``TrainState`` (its model, its Adam and its count of updates)."""
+    ``TrainState`` (its model, its Adam and its count of updates). Params
+    stored as row shards (``state.shards``) and their moments are gathered
+    whole: a collective that every rank of the model group calls."""
+    shards = getattr(state, "shards", None)
+    whole = (lambda name, v: v) if shards is None else shards.whole
     params, mu, nu, counts = {}, {}, {}, set()
     for name, p in state.model.named_parameters():
         path = torch_key_to_flax_path(name)
         adam = state.optimizer.state.get(p, {})
-        _insert(params, path, p.detach().cpu().numpy())
+        _insert(params, path, whole(name, p.detach()).cpu().numpy())
         for tree, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
             moment = adam.get(key)
-            _insert(tree, path, np.zeros(p.shape, np.float32) if moment is None
-                    else moment.detach().cpu().numpy())
+            moment = torch.zeros_like(p) if moment is None else moment.detach()
+            _insert(tree, path, whole(name, moment).cpu().numpy())
         counts.add(int(adam["step"]) if "step" in adam else 0)
     if len(counts) > 1:
         raise ValueError(f"Adam's params were stepped unequally: {sorted(counts)}")

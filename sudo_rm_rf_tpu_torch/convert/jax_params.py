@@ -103,7 +103,7 @@ def _find_adam_state(tree):
     return None
 
 
-def load_jax_train_state(model, optimizer, params, opt_state, step):
+def load_jax_train_state(model, optimizer, params, opt_state, step, shards=None):
     """Carry a JAX ``TrainState`` (as numpy trees) into the port.
 
     ``params`` go into ``model`` as in :func:`load_jax_params`; the optax
@@ -111,16 +111,19 @@ def load_jax_train_state(model, optimizer, params, opt_state, step):
     becomes ``optimizer``'s ``exp_avg``, ``exp_avg_sq`` and ``step`` for each
     param; ``step`` is the count of updates, which the LR schedule reads.
     ``optimizer`` is a ``torch.optim.Adam`` over ``model.parameters()``.
-    Returns the port's ``TrainState``.
+    With ``shards`` (a ``parallel.RowShards``) each param it names, and its
+    moments, go in as this rank's rows. Returns the port's ``TrainState``.
     """
     from sudo_rm_rf_tpu_torch.train.trainer import TrainState
 
     adam = _find_adam_state(opt_state)
     if adam is None:
         raise ValueError("opt_state holds no Adam state (count, mu, nu)")
-    load_jax_params(model, params)
     keys = model.state_dict().keys()
-    mu, nu = (params_to_state_dict(unstack_block_params(m), keys) for m in (adam.mu, adam.nu))
+    local = (lambda sd: sd) if shards is None else shards.local_state_dict
+    load_state_dict_checked(model, local(params_to_state_dict(unstack_block_params(params), keys)))
+    mu, nu = (local(params_to_state_dict(unstack_block_params(m), keys))
+              for m in (adam.mu, adam.nu))
     owned = {id(p) for group in optimizer.param_groups for p in group["params"]}
     count = float(adam.count)
     for name, p in model.named_parameters():
@@ -131,4 +134,4 @@ def load_jax_train_state(model, optimizer, params, opt_state, step):
             "exp_avg": mu[name].reshape(p.shape).to(p.device, p.dtype),
             "exp_avg_sq": nu[name].reshape(p.shape).to(p.device, p.dtype),
         }
-    return TrainState(step=int(step), model=model, optimizer=optimizer)
+    return TrainState(step=int(step), model=model, optimizer=optimizer, shards=shards)

@@ -9,7 +9,11 @@
   * source permutations are re-aligned between consecutive chunks by
     maximizing overlap correlation, on the host;
   * chunks are blended with a periodic Hann window (COLA at 50% hop), the
-    first and last chunks keeping full weight at the borders.
+    first and last chunks keeping full weight at the borders;
+  * with a ``parallel.Mesh``, every rank holds the recording and each chunk
+    batch is split over the data group: each data index runs its chunks
+    through the model's own forward (K1 under ``impl="kernel"``), the
+    estimates are all-gathered, and every rank blends the whole recording.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import numpy as np
 import torch
 
 from sudo_rm_rf_tpu_torch.losses import mixture_consistency
+from sudo_rm_rf_tpu_torch.parallel import shard_batch
+from sudo_rm_rf_tpu_torch.parallel.collectives import all_gather_rows
 
 
 def _hann(n: int) -> np.ndarray:
@@ -42,6 +48,9 @@ class OverlapAddSeparator:
         applies to GroupComm outputs.
       forward_fn: (B, 1, T) -> (B, S, T) in place of ``model`` — e.g.
         ``functools.partial(models.fast_inference.improved_forward_fast, model)``.
+      mesh: optional ``parallel.Mesh``; every rank of it calls ``separate``
+        with the same recording, and chunk batches are split over its data
+        group. batch_chunks is rounded up to a multiple of its data size.
     """
 
     def __init__(
@@ -52,6 +61,7 @@ class OverlapAddSeparator:
         batch_chunks: int = 8,
         mixture_consistency: Optional[str] = None,
         forward_fn: Optional[Callable] = None,
+        mesh=None,
     ):
         if mixture_consistency not in (None, "uniform", "magsq"):
             raise ValueError(f"mixture_consistency {mixture_consistency!r} not in "
@@ -62,6 +72,9 @@ class OverlapAddSeparator:
         self.chunk = int(chunk_samples)
         self.hop = self.chunk // 2
         self.num_sources = num_sources
+        self.mesh = mesh
+        if mesh is not None:
+            batch_chunks = -(-batch_chunks // mesh.n_data) * mesh.n_data
         self.batch_chunks = batch_chunks
         self.window = _hann(self.chunk).astype(np.float32)
         self._perms = list(itertools.permutations(range(num_sources)))
@@ -89,7 +102,12 @@ class OverlapAddSeparator:
                     [batch, np.zeros((self.batch_chunks - valid, self.chunk), np.float32)],
                     axis=0,
                 )
-            est = self._forward(torch.from_numpy(batch).to(self.device))
+            batch = torch.from_numpy(batch).to(self.device)
+            if self.mesh is None:
+                est = self._forward(batch)
+            else:
+                est = all_gather_rows(self._forward(shard_batch(self.mesh, batch)),
+                                      self.mesh.data_group)
             outs.append(est[:valid].cpu().numpy())
         return np.concatenate(outs, axis=0)
 
@@ -151,12 +169,14 @@ def separate_file(
     chunk_seconds: float = 4.0,
     num_sources: int = 2,
     separator=None,
+    write: bool = True,
     **kwargs,
 ):
     """Read a wav, separate it, write <stem>_s{i}.wav files (int16, peak-
     normalized where the peak exceeds 1). ``separator``: anything with
     ``separate((T,)) -> (S, T)`` (default: an ``OverlapAddSeparator`` of
-    ``model`` built from the other arguments)."""
+    ``model`` built from the other arguments). ``write=False`` separates and
+    writes nothing (a rank other than the writer of a launch); returns []."""
     from scipy.io import wavfile
 
     from sudo_rm_rf_tpu_torch.data.base import read_wav
@@ -170,6 +190,8 @@ def separate_file(
             **kwargs,
         )
     est = separator.separate(wav)
+    if not write:
+        return []
     os.makedirs(out_dir, exist_ok=True)
     stem = os.path.splitext(os.path.basename(in_path))[0]
     paths = []

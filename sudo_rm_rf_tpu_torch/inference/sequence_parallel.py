@@ -127,8 +127,10 @@ class DistributedShards:
     The halo is one ``batch_isend_irecv`` with each existing neighbour (a
     rank with no neighbour on a side posts nothing there and keeps zeros),
     GlobLN sums one ``all_reduce``, the attentive k/v and the output one
-    ``all_gather_into_tensor``. NCCL cannot place two ranks on one GPU, so
-    on one card this runs at world size 1.
+    ``all_gather_into_tensor``. NCCL cannot place two ranks on one GPU: ranks
+    that share a card run gloo, which takes CUDA tensors in ``all_reduce``
+    only, so over gloo the halo and the gathers of a CUDA tensor go through
+    the host.
     """
 
     def __init__(self, group=None):
@@ -139,6 +141,7 @@ class DistributedShards:
         self.group = group
         self.world = dist.get_world_size(group)
         self._rank = dist.get_rank(group)
+        self._via_host = dist.get_backend(group) == "gloo"
 
     def rank(self, device=None) -> torch.Tensor:
         return torch.tensor([self._rank], device=device)
@@ -158,6 +161,8 @@ class DistributedShards:
     def halo_exchange(self, x: torch.Tensor, halo: int) -> torch.Tensor:
         import torch.distributed as dist
 
+        if self._via_host and x.is_cuda:
+            return self.halo_exchange(x.cpu(), halo).to(x.device)
         left = x.new_zeros((x.shape[0], halo))
         right = x.new_zeros((x.shape[0], halo))
         p2p = []
@@ -177,10 +182,23 @@ class DistributedShards:
     def all_gather(self, v: torch.Tensor) -> torch.Tensor:
         import torch.distributed as dist
 
+        if self._via_host and v.is_cuda:
+            return self.all_gather(v.cpu()).to(v.device)
         v = v.contiguous()
         out = v.new_empty((self.world * v.shape[0], *v.shape[1:]))
         dist.all_gather_into_tensor(out, v, group=self.group)
         return LocalShards(self.world).all_gather(out)
+
+
+def make_seq_comm():
+    """The communicator over every rank of a ``torch.distributed`` launch
+    (JAX's ``make_seq_mesh()`` over every device): a :class:`DistributedShards`
+    of the default group, or ``LocalShards(1)`` in one process."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return DistributedShards()
+    return LocalShards(1)
 
 
 # ---------------------------------------------------------------------------

@@ -137,7 +137,8 @@ def _block_fn(impl: str, pyramid_dtype):
 
 @torch.no_grad()
 def improved_forward_fast(model, input_wav: torch.Tensor, impl: str = None,
-                          compute_dtype=None, pyramid_dtype=torch.float32) -> torch.Tensor:
+                          compute_dtype=None, pyramid_dtype=torch.float32,
+                          tp_mesh=None) -> torch.Tensor:
     """model: a ``SuDORMRFImproved``; input_wav: (B, 1, T) or (B, T) fp32.
     Returns (B, S, T) fp32.
 
@@ -152,17 +153,31 @@ def improved_forward_fast(model, input_wav: torch.Tensor, impl: str = None,
 
     pyramid_dtype: ``torch.float32`` (default) or ``torch.bfloat16``, the
     kernel's ladder store (``ops.uconv.fused_uconv_block``); 'kernel' only.
+
+    tp_mesh: a ``parallel.Mesh`` (every rank of it calls with the same
+    global batch): each data index runs its rows, every block's channels
+    split over its model group (compute tensor parallelism, 'fma' only), and
+    every rank returns the whole batch.
     """
     if impl is None:
-        impl = "kernel" if input_wav.is_cuda else "fma"
+        impl = "kernel" if input_wav.is_cuda and tp_mesh is None else "fma"
     if impl not in _BLOCKS:
         raise ValueError(f"impl {impl!r} not in {sorted(_BLOCKS)}")
     block = _block_fn(impl, pyramid_dtype)
+    if tp_mesh is not None:
+        if impl != "fma":
+            raise ValueError("tp_mesh requires impl='fma'")
+        from sudo_rm_rf_tpu_torch.parallel import shard_batch
+        from sudo_rm_rf_tpu_torch.parallel.collectives import all_gather_rows
+
+        block = functools.partial(uconv_block_fma, tp_group=tp_mesh.model_group)
+        input_wav = shard_batch(tp_mesh, input_wav)
     model = cast_model(model, compute_dtype, impl)
     x, s, in_len = _encode(model, input_wav, _dtype(compute_dtype))
     for blk in model.sm:
         x = block(x, params_from_module(blk), model.upsampling_depth)
-    return _decode(model, x, s, in_len, model.num_sources)
+    est = _decode(model, x, s, in_len, model.num_sources)
+    return est if tp_mesh is None else all_gather_rows(est, tp_mesh.data_group)
 
 
 def _make_bd_mm(b: int, g: int):

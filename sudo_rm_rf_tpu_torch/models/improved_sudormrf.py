@@ -40,6 +40,12 @@ from sudo_rm_rf_tpu_torch.ops.uconv import (
 BLOCK_IMPLS = ("xla", "fma", "kernel")
 
 
+def check_tp_mesh(tp_mesh, block_impl: str) -> None:
+    """Compute tensor parallelism runs the 'fma' blocks only (JAX's error)."""
+    if tp_mesh is not None and block_impl != "fma":
+        raise ValueError("tp_mesh requires block_impl='fma'")
+
+
 def run_blocks(blocks: nn.Sequential, x, remat: bool = False):
     """``blocks(x)``; with ``remat`` each block under
     ``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes
@@ -63,17 +69,22 @@ class UConvBlock(nn.Module):
     block_impl: 'xla' (the plain layers), 'fma' (``ops.uconv.uconv_block_fma``)
     or 'kernel' (``ops.uconv.fused_uconv_block``: the CUDA kernel on a CUDA
     tensor, forward only).
+
+    tp_mesh: a ``parallel.Mesh``: compute tensor parallelism over its model
+    group (``uconv_block_fma``'s ``tp_group``); 'fma' only.
     """
 
     def __init__(self, out_channels: int = 128, in_channels: int = 512,
                  upsampling_depth: int = 4, block_impl: str = "xla", *,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 tp_mesh=None, generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         if block_impl not in BLOCK_IMPLS:
             raise ValueError(f"block_impl {block_impl!r} not in {BLOCK_IMPLS}")
+        check_tp_mesh(tp_mesh, block_impl)
         g = default_generator(generator)
         self.depth = upsampling_depth
         self.block_impl = block_impl
+        self.tp_mesh = tp_mesh
         self.proj_1x1 = ConvNormAct(out_channels, in_channels, 1,
                                     generator=g, device=device)
         self.spp_dw = nn.ModuleList(
@@ -88,7 +99,9 @@ class UConvBlock(nn.Module):
 
     def forward(self, x):
         if self.block_impl == "fma":
-            return uconv_block_fma(x, params_from_module(self), self.depth)
+            return uconv_block_fma(x, params_from_module(self), self.depth,
+                                   tp_group=None if self.tp_mesh is None
+                                   else self.tp_mesh.model_group)
         if self.block_impl == "kernel":
             return fused_uconv_block(x, params_from_module(self), self.depth)
         residual = x
@@ -108,15 +121,20 @@ class SuDORMRFImproved(nn.Module):
 
     remat_blocks: recompute each block's activations in the backward
     (``run_blocks``): about one more forward for O(num_blocks) less memory.
+
+    tp_mesh: a ``parallel.Mesh`` whose model group splits every block's Ci
+    channels (compute tensor parallelism, JAX's ``tp_mesh``); requires
+    block_impl='fma'. Each rank runs its own rows of a batch.
     """
 
     def __init__(self, out_channels: int = 128, in_channels: int = 512,
                  num_blocks: int = 16, upsampling_depth: int = 4,
                  enc_kernel_size: int = 21, enc_num_basis: int = 512,
                  num_sources: int = 2, block_impl: str = "xla",
-                 remat_blocks: bool = False, *,
+                 remat_blocks: bool = False, *, tp_mesh=None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
+        check_tp_mesh(tp_mesh, block_impl)
         g = default_generator(generator)
         self.remat_blocks = remat_blocks
         self.out_channels, self.in_channels = out_channels, in_channels
@@ -133,7 +151,7 @@ class SuDORMRFImproved(nn.Module):
                                  device=device)
         self.sm = nn.Sequential(*(
             UConvBlock(out_channels, in_channels, upsampling_depth, block_impl,
-                       generator=g, device=device)
+                       tp_mesh=tp_mesh, generator=g, device=device)
             for _ in range(num_blocks)
         ))
         self.mask_net = nn.Sequential(

@@ -22,12 +22,20 @@ see :func:`uconv_block_reference`) and (B, C, T) layout:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from sudo_rm_rf_tpu_torch.ops.conv import conv1d
 from sudo_rm_rf_tpu_torch.ops.norm import glob_ln
 from sudo_rm_rf_tpu_torch.ops.resample import upsample_nearest_2x
+from sudo_rm_rf_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+    copy_to_group,
+    group_rank,
+    group_size,
+    reduce_from_group,
+)
 
 EPS = 1e-8
 # (channels, time steps) of the sub-tile whose GlobLN moments the kernel's
@@ -102,7 +110,7 @@ def dw_conv_s2(v, w):
     )
 
 
-def uconv_block_fma(x, params, depth: int, matmul=None):
+def uconv_block_fma(x, params, depth: int, matmul=None, tp_group=None):
     """Plain block with the kernel's algebraic optimizations: depthwise convs
     as 5 shifted multiply-adds (stride 2 phase-split into even and odd
     planes), and each ladder GlobLN folded into the next conv's input as
@@ -112,30 +120,47 @@ def uconv_block_fma(x, params, depth: int, matmul=None):
     and res products (the int8 serving path's hook, ``models/quantized.py``).
     With it, ``params['proj_w']`` and ``params['res_w']`` may be whatever
     the hook takes (an int8 ``{'q', 's'}`` dict): they are passed through.
+
+    tp_group: compute tensor parallelism (JAX's ``constrain``) over a model
+    group whose ranks hold the same x and the whole params: each rank runs
+    its contiguous 1/n of the Ci channels. The proj 1x1 is column-parallel,
+    GlobLN's sums and sums of squares are all-reduced over the group in
+    fp32, the ladder and the upsample-add stay local to each channel, and
+    the res 1x1 is row-parallel with its partial outputs all-reduced. The
+    math and the gradients are the unsharded block's (the params and x
+    enter through ``copy_to_group``, so each rank's gradient of them is
+    whole). Not with a ``matmul`` hook.
     """
     if matmul is None:
         matmul = torch.matmul
     proj_w = params["proj_w"]
     # proj_w's rows are the expanded Ci channels in both forms
     ci = proj_w["q"].shape[0] if isinstance(proj_w, dict) else proj_w.shape[0]
-    y = matmul(proj_w, x) + params["proj_b"][None, :, None]
-    y = glob_ln(y, params["proj_g"], params["proj_beta"])
+    x_in, norm = x, glob_ln
+    if tp_group is not None:
+        if matmul is not torch.matmul:
+            raise ValueError("uconv_block_fma: tp_group takes no matmul hook")
+        params = _tp_part(params, tp_group)
+        x_in = copy_to_group(x, tp_group)
+        norm = functools.partial(_tp_glob_ln, group=tp_group, n_channels=ci)
+    y = matmul(params["proj_w"], x_in) + params["proj_b"][None, :, None]
+    y = norm(y, params["proj_g"], params["proj_beta"])
     y = _prelu(y, params["proj_slope"])
 
     def stats(o, n):
         o32 = o.float()
-        s1 = o32.sum(dim=(1, 2), keepdim=True)
-        s2 = (o32 * o32).sum(dim=(1, 2), keepdim=True)
-        mean = s1 / n
-        var = torch.clamp(s2 / n - mean * mean, min=0.0)
+        s = all_reduce_sum(torch.stack([o32.sum(dim=(1, 2)), (o32 * o32).sum(dim=(1, 2))]),
+                           tp_group)[:, :, None, None]
+        mean = s[0] / n
+        var = torch.clamp(s[1] / n - mean * mean, min=0.0)
         return mean, torch.rsqrt(var + EPS)
 
-    a = torch.ones((1, ci, 1), dtype=y.dtype, device=y.device)
-    bb = torch.zeros((1, ci, 1), dtype=y.dtype, device=y.device)
+    a = torch.ones((1, y.shape[1], 1), dtype=y.dtype, device=y.device)
+    bb = torch.zeros((1, y.shape[1], 1), dtype=y.dtype, device=y.device)
     cur, raw, folds = y, [], []
     for k in range(depth):
-        x_in = a * cur + bb
-        o = (dw_conv_s1 if k == 0 else dw_conv_s2)(x_in, params["dw_w"][k])
+        x_k = a * cur + bb
+        o = (dw_conv_s1 if k == 0 else dw_conv_s2)(x_k, params["dw_w"][k])
         o = o + params["dw_b"][k][None, :, None]
         mean, inv = stats(o, ci * o.shape[-1])
         g = params["dw_g"][k].float()[None, :, None]
@@ -152,10 +177,55 @@ def uconv_block_fma(x, params, depth: int, matmul=None):
         a, bb = folds[k]
         acc = (a * raw[k] + bb) + upsample_nearest_2x(acc)
 
-    acc = glob_ln(acc, params["final_g"], params["final_beta"])
+    acc = norm(acc, params["final_g"], params["final_beta"])
     acc = _prelu(acc, params["final_slope"])
-    out = matmul(params["res_w"], acc) + params["res_b"][None, :, None]
+    out = reduce_from_group(matmul(params["res_w"], acc), tp_group)
+    out = out + params["res_b"][None, :, None]
     return out + x
+
+
+# the params of a block split over Ci in compute TP, and the dim of each
+# that holds Ci
+_TP_SPLIT = {"proj_w": 0, "proj_b": 0, "proj_g": 0, "proj_beta": 0, "dw_w": 1, "dw_b": 1,
+             "dw_g": 1, "dw_beta": 1, "final_g": 0, "final_beta": 0, "res_w": 1}
+
+
+def _tp_part(params, group):
+    """This rank's channel part of a block's params for compute TP: its
+    contiguous 1/n of Ci in each split param, the slopes whole, each through
+    ``copy_to_group`` (a gradient that is this rank's part, summed over the
+    group in the backward); ``res_b`` is added after the all-reduce and is
+    used whole by every rank."""
+    n, r = group_size(group), group_rank(group)
+    ci = params["proj_w"].shape[0]
+    if ci % n:
+        raise ValueError(f"compute TP: Ci={ci} does not divide the model group of {n}")
+    part = slice(r * ci // n, (r + 1) * ci // n)
+    out = {}
+    for key, v in params.items():
+        if key == "res_b":
+            out[key] = v
+            continue
+        v = copy_to_group(v, group)
+        dim = _TP_SPLIT.get(key)
+        out[key] = v if dim is None else v[(slice(None),) * dim + (part,)]
+    return out
+
+
+def _tp_glob_ln(x, gamma, beta, *, group, n_channels: int, eps: float = EPS):
+    """GlobLN of a channel part x (B, C/n, T) of a (B, C, T) tensor split
+    over ``group``: the sum and the sum of squares, in fp32, all-reduced;
+    the population variance from them. gamma and beta are the part's."""
+    x32 = x.float()
+    s = all_reduce_sum(torch.stack([x32.sum(dim=(1, 2)), (x32 * x32).sum(dim=(1, 2))]),
+                       group)[:, :, None, None]
+    n = n_channels * x.shape[-1]
+    mean = s[0] / n
+    inv = torch.rsqrt(torch.clamp(s[1] / n - mean * mean, min=0.0) + eps)
+    g32, b32 = gamma.float()[None, :, None], beta.float()[None, :, None]
+    if x.dtype == torch.float32:
+        return g32 * ((x - mean) * inv) + b32
+    return (g32 * inv).to(x.dtype) * x + (b32 - g32 * inv * mean).to(x.dtype)
 
 
 def tf32_round(v):

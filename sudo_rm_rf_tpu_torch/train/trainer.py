@@ -30,6 +30,28 @@ backward of a train step only, and its dropout layers draw their masks from
 a ``torch.Generator`` the trainer owns (on the model's device, seeded with
 ``dropout_seed``); every other forward, and every step without it, is
 deterministic.
+
+With a ``mesh`` (``parallel.make_mesh``: one process a rank) a step is the
+JAX trainer's one jitted step over the global batch, on a (data, model) grid
+of ranks:
+
+* every rank prepares the global batch from the same draws (the remixes
+  permute across the whole batch), or gathers the ranks' local rows first,
+  and keeps its data index's rows;
+* the loss clamp acts on the global batch's mean: each rank all-reduces its
+  loss value over the data group before the clamp, and every rank's
+  gradient is zero exactly where that mean saturates (a per-rank clamp is
+  wrong wherever one rank's mean crosses it and the global mean does not);
+  with ``grad_accum_steps`` the global batch is split into microbatches
+  first, each clamped on its own global mean, as JAX's;
+* gradients are averaged over the data group (one flat all-reduce), then
+  the global-norm clip and the optimizer step run identically on every
+  rank, so the params stay bit-identical across it;
+* ``shard_params`` on a model group of n > 1 (storage tensor parallelism)
+  stores the params JAX's ``tp_param_shardings`` picks, and their
+  optimizer moments, as row shards; the forward all-gathers them (before any
+  ``compute_dtype`` cast) and the backward reduce-scatters their gradients,
+  and the global norm sums the shards' squared norms over the group.
 """
 
 from __future__ import annotations
@@ -43,6 +65,8 @@ import torch
 from torch import nn
 
 from sudo_rm_rf_tpu_torch import losses as losses_lib
+from sudo_rm_rf_tpu_torch.parallel import Mesh, RowShards, batch_rows, shard_params
+from sudo_rm_rf_tpu_torch.parallel.collectives import all_gather_rows, all_reduce_, gather_rows
 from sudo_rm_rf_tpu_torch.train import augment as augment_lib
 
 OPTIMIZERS = ("adam", "radam_cosine")
@@ -171,11 +195,13 @@ class RAdam(torch.optim.Optimizer):
 
 @dataclass
 class TrainState:
-    """The model (fp32 master params), its Adam and the count of updates."""
+    """The model (fp32 master params), its Adam and the count of updates;
+    ``shards`` names the params stored as row shards (storage TP)."""
 
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    shards: Optional[RowShards] = None
 
 
 @dataclass(frozen=True)
@@ -200,7 +226,8 @@ class TrainerConfig:
     # microbatches per update: the batch is augmented whole, then split;
     # the loss clamp applies per microbatch
     grad_accum_steps: int = 1
-    shard_params: bool = False  # waits
+    # storage tensor parallelism over the mesh's model group (no-op on 1)
+    shard_params: bool = False
     # dropout in the train steps, from a generator seeded with dropout_seed
     train_dropout: bool = False
     dropout_seed: int = 0
@@ -234,9 +261,7 @@ def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor) -> None:
 
 
 def check_config(config: TrainerConfig) -> None:
-    """Raise for a trainer option the port does not take yet."""
-    if config.shard_params:
-        raise NotImplementedError("shard_params is not ported yet (ROADMAP queue 1, item 10)")
+    """Raise for a trainer option the port does not take."""
     upload = _dtype(config.upload_dtype, "upload_dtype")
     if upload is not None and not upload.is_floating_point:
         raise ValueError(f"upload_dtype must be a floating dtype, got {config.upload_dtype!r}")
@@ -269,6 +294,12 @@ class Trainer:
     With ``config.train_dropout`` the model must have dropout layers (the
     attentive models); ``dropout_generator`` is the generator they draw
     from.
+
+    mesh: a ``parallel.Mesh`` this rank belongs to (the module docstring
+      says what a step over it does); None trains in this process alone.
+      With ``config.shard_params`` and a model group of n > 1 the model's
+      chosen params are replaced by this rank's row shards here; ``shards``
+      names them.
     """
 
     def __init__(
@@ -277,13 +308,18 @@ class Trainer:
         config: TrainerConfig = TrainerConfig(),
         loss_fn: Callable = _default_loss,
         prepare_batch: Optional[Callable] = None,
+        mesh: Optional[Mesh] = None,
     ):
         check_config(config)
+        if mesh is not None and not mesh.member:
+            raise ValueError(f"rank {mesh.rank} is not in the mesh {mesh.grid.tolist()}")
         if any(getattr(m, "block_impl", None) == "kernel" for m in model.modules()):
             raise ValueError("block_impl 'kernel' is forward-only: train with "
                              "block_impl 'fma' or 'xla'")
         self.model = model
         self.config = config
+        self.mesh = mesh
+        self.shards = shard_params(model, mesh) if mesh is not None and config.shard_params else None
         self.loss_fn = loss_fn
         self.prepare_batch = prepare_batch or _default_prepare
         self.compute_dtype = _dtype(config.compute_dtype)
@@ -319,12 +355,24 @@ class Trainer:
         else:
             opt = torch.optim.Adam(self.model.parameters(), lr=self.config.learning_rate,
                                    betas=(0.9, 0.999), eps=1e-8)
-        return TrainState(step=0, model=self.model, optimizer=opt)
+        return TrainState(step=0, model=self.model, optimizer=opt, shards=self.shards)
 
     def state_from_params(self, state_dict) -> TrainState:
-        """Load a state_dict into the model, then :meth:`init_state`."""
+        """Load a whole state_dict into the model (each sharded param as this
+        rank's rows, as :meth:`init_state` places them), then
+        :meth:`init_state`."""
+        if self.shards is not None:
+            state_dict = self.shards.local_state_dict(state_dict)
         self.model.load_state_dict(state_dict, strict=True)
         return self.init_state()
+
+    def whole_state_dict(self) -> dict:
+        """The model's state_dict with every sharded param gathered whole (a
+        collective over the model group under storage TP)."""
+        sd = self.model.state_dict()
+        if self.shards is None:
+            return sd
+        return {k: self.shards.whole(k, v) for k, v in sd.items()}
 
     # -- steps ---------------------------------------------------------------
 
@@ -333,10 +381,16 @@ class Trainer:
         """Estimates (B, S, T) in fp32. With ``compute_dtype`` the params and
         the mixture are cast to it by differentiable casts (the gradient
         comes back to the fp32 params), as the JAX step casts its param
-        tree."""
-        if compute_dtype is not None:
-            params = {n: p.to(compute_dtype) for n, p in model.named_parameters()}
-            mixture = mixture.to(compute_dtype)
+        tree. Sharded params are all-gathered whole first (differentiably);
+        every rank of the model group must call it together."""
+        if compute_dtype is not None or self.shards is not None:
+            params = {}
+            for n, p in model.named_parameters():
+                if self.shards is not None and n in self.shards:
+                    p = gather_rows(p, self.shards.group)
+                params[n] = p if compute_dtype is None else p.to(compute_dtype)
+            if compute_dtype is not None:
+                mixture = mixture.to(compute_dtype)
             est = torch.func.functional_call(model, params, (mixture,))
         else:
             est = model(mixture)
@@ -346,10 +400,33 @@ class Trainer:
         return est.float()
 
     def _loss(self, model, mixture, targets):
+        """(the loss to differentiate, its value). Over a data group the
+        value is the global batch's mean, clamped, and the loss is this
+        rank's mean where that value lies inside the clamp, else zero times
+        it: the data group's mean gradient is then the global mean's."""
         loss = self.loss_fn(self.forward(model, mixture, self.compute_dtype), targets)
-        if self.config.loss_clamp > 0:
-            loss = torch.clamp(loss, -self.config.loss_clamp, self.config.loss_clamp)
-        return loss
+        c = self.config.loss_clamp
+        group = None if self.mesh is None else self.mesh.data_group
+        if group is None:
+            if c > 0:
+                loss = torch.clamp(loss, -c, c)
+            return loss, loss.detach()
+        mean = all_reduce_(loss.detach().clone(), group) / self.mesh.n_data
+        if c <= 0:
+            return loss, mean
+        # torch.clamp's gradient: 1 where -c <= mean <= c
+        inside = ((mean >= -c) & (mean <= c)).to(loss.dtype)
+        return loss * inside, torch.clamp(mean, -c, c)
+
+    def _rows(self, tensor):
+        """This rank's rows of a global (micro)batch."""
+        return tensor if self.mesh is None else tensor[batch_rows(self.mesh, tensor.shape[0])]
+
+    def _gather_local(self, batch):
+        """The global batch from every data index's local rows."""
+        if isinstance(batch, (tuple, list)):
+            return type(batch)(self._gather_local(b) for b in batch)
+        return all_gather_rows(batch, self.mesh.data_group)
 
     def _to_device(self, batch):
         if isinstance(batch, (tuple, list)):
@@ -389,31 +466,59 @@ class Trainer:
             return type(batch)(self._upcast(b) for b in batch)
         return batch.float() if batch.is_floating_point() else batch
 
-    def compute_gradients(self, state: TrainState, batch, draws) -> torch.Tensor:
+    def compute_gradients(self, state: TrainState, batch, draws,
+                          local_rows: bool = False) -> torch.Tensor:
         """Augment (``draws`` go to ``prepare_batch`` with the batch), forward
         and backward: leaves each param's ``.grad`` (averaged over the
-        microbatches) and returns the loss."""
+        microbatches, and over a mesh's data group) and returns the loss.
+
+        Over a mesh, ``batch`` is the global batch (every rank passes the
+        same), or with ``local_rows`` this data index's rows of it, which
+        are all-gathered over the data group first; the draws are the global
+        batch's either way."""
         model = state.model
-        mixture, targets = self.prepare_batch(draws, self._upcast(self.upload(batch)))
+        batch = self._upcast(self.upload(batch))
+        if local_rows and self.mesh is not None:
+            batch = self._gather_local(batch)
+        mixture, targets = self.prepare_batch(draws, batch)
         state.optimizer.zero_grad(set_to_none=True)
         with self._dropout(model):
-            return self._backward(model, mixture, targets)
+            loss = self._backward(model, mixture, targets)
+        if self.mesh is not None:
+            self._mean_gradients(model)
+        return loss
 
     def _backward(self, model, mixture, targets) -> torch.Tensor:
         k = self.config.grad_accum_steps
         if k == 1:
-            loss = self._loss(model, mixture, targets)
+            loss, value = self._loss(model, self._rows(mixture), self._rows(targets))
             loss.backward()
-            return loss.detach()
+            return value
         b = mixture.shape[0]
         if b % k:
             raise ValueError(f"batch {b} must divide grad_accum_steps {k}")
         loss = torch.zeros((), device=mixture.device)
         for m_i, t_i in zip(mixture.chunk(k), targets.chunk(k)):
-            loss_i = self._loss(model, m_i, t_i)
+            loss_i, value_i = self._loss(model, self._rows(m_i), self._rows(t_i))
             (loss_i / k).backward()
-            loss = loss + loss_i.detach() / k
+            loss = loss + value_i / k
         return loss
+
+    def _mean_gradients(self, model: nn.Module) -> None:
+        """Every param's gradient (zeros where the loss does not reach it)
+        averaged over the data group, in one flat all-reduce."""
+        params = list(model.parameters())
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.mesh.data_group is None:
+            return
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        all_reduce_(flat, self.mesh.data_group).div_(self.mesh.n_data)
+        offset = 0
+        for p in params:
+            p.grad.copy_(flat[offset : offset + p.numel()].view_as(p.grad))
+            offset += p.numel()
 
     @contextlib.contextmanager
     def _dropout(self, model: nn.Module):
@@ -439,7 +544,7 @@ class Trainer:
                 # decay and its count moves with every other param's
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
-        norm = global_norm(grads)
+        norm = self._global_norm(state.model)
         if self.config.clip_grad_norm > 0:
             clip_by_global_norm_(grads, self.config.clip_grad_norm, norm)
         for group in state.optimizer.param_groups:
@@ -448,11 +553,22 @@ class Trainer:
         state.step += 1
         return norm
 
-    def train_step(self, state: TrainState, batch, draws):
+    def _global_norm(self, model: nn.Module) -> torch.Tensor:
+        """The global norm of the gradients; under storage TP the shards'
+        squared norms are summed over the model group."""
+        if self.shards is None:
+            return global_norm([p.grad for p in model.parameters()])
+        named = list(model.named_parameters())
+        sq = [torch.stack(torch._foreach_norm([p.grad for n, p in named if (n in self.shards)
+                                                == sharded])).square().sum()
+              for sharded in (False, True)]
+        return torch.sqrt(sq[0] + all_reduce_(sq[1], self.shards.group))
+
+    def train_step(self, state: TrainState, batch, draws, local_rows: bool = False):
         """One update. Returns (state, {"loss", "grad_norm"}) with the
         metrics as device scalars; grad_norm is the global norm before the
-        clip."""
-        loss = self.compute_gradients(state, batch, draws)
+        clip. ``local_rows``: as :meth:`compute_gradients` takes it."""
+        loss = self.compute_gradients(state, batch, draws, local_rows)
         return state, {"loss": loss, "grad_norm": self.apply_gradients(state)}
 
     @torch.no_grad()

@@ -13,6 +13,13 @@ either package resumes the other's run. ``restore`` also reads the
 ``torch.save({"step", "model", "optimizer"})`` files that earlier versions
 of the port wrote; ``convert.checkpoint_format`` tells the two apart by
 their first bytes.
+
+Over a (data, model) grid of ranks every rank calls every policy, and one
+manager (rank 0's, ``writer=True``) writes and removes files. A state whose
+params are stored as row shards (``TrainState.shards``) is gathered whole
+first, a collective of the model group, so every file holds the whole tree
+that a one-process run (of either package) reads. ``restore`` reads the
+whole file on every rank and keeps each rank's rows.
 """
 
 from __future__ import annotations
@@ -36,10 +43,12 @@ def _timestamp() -> str:
 class CheckpointManager:
     """Manages best/current/periodic checkpoints for one experiment dir."""
 
-    def __init__(self, directory: str, model_name: str = "model"):
+    def __init__(self, directory: str, model_name: str = "model", writer: bool = True):
         self.directory = directory
         self.model_name = model_name
-        os.makedirs(directory, exist_ok=True)
+        self.writer = writer
+        if writer:
+            os.makedirs(directory, exist_ok=True)
         self._best_value: Optional[float] = None
 
     # -- low-level -----------------------------------------------------------
@@ -48,8 +57,13 @@ class CheckpointManager:
         return os.path.join(self.directory, tag)
 
     def save(self, state, tag: str, metadata: Optional[dict] = None) -> str:
-        """Write a ``TrainState`` to <dir>/<tag>."""
+        """Write a ``TrainState`` to <dir>/<tag> (the writer only; a sharded
+        state is gathered on every rank)."""
         path = self._path(tag)
+        if not self.writer:
+            if getattr(state, "shards", None) is not None:
+                flax_checkpoint.train_state_to_flax(state)  # the gather's collectives
+            return path
         tmp = path + ".tmp"
         flax_checkpoint.save_train_state(state, tmp)
         os.replace(tmp, path)  # atomic: a crash never leaves a torn file
@@ -63,10 +77,13 @@ class CheckpointManager:
         place) and return it."""
         if path is None:
             path = self._path(tag)
+        shards = getattr(state, "shards", None)
         if flax_checkpoint.checkpoint_format(path) == "msgpack":
             state.step = flax_checkpoint.load_train_state_from_checkpoint(
-                path, state.model, state.optimizer).step
+                path, state.model, state.optimizer, shards=shards).step
             return state
+        if shards is not None:
+            raise ValueError(f"{path}: a torch.save checkpoint does not resume sharded params")
         # on the host: load_state_dict copies each tensor to where its param
         # lives, and Adam keeps its step counts on the host
         blob = torch.load(path, map_location="cpu", weights_only=True)
@@ -89,7 +106,7 @@ class CheckpointManager:
         beats every earlier one. Returns whether it did."""
         ts = _timestamp()
         meta = {"epoch": epoch, metric_name: value}
-        for old in glob.glob(self._path("current_*")):
+        for old in glob.glob(self._path("current_*")) if self.writer else ():
             os.remove(old)
         self.save(state, f"current_{metric_name}_{value:.4f}_{ts}", meta)
 
@@ -100,7 +117,7 @@ class CheckpointManager:
         )
         if is_best:
             self._best_value = value
-            for old in glob.glob(self._path("best_*")):
+            for old in glob.glob(self._path("best_*")) if self.writer else ():
                 os.remove(old)
             self.save(state, f"best_{metric_name}_{value:.4f}_{ts}", meta)
         return is_best

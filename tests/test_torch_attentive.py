@@ -40,6 +40,7 @@ from sudo_rm_rf_tpu_torch.config import ModelConfig
 from sudo_rm_rf_tpu_torch.convert import load_jax_params, unstack_block_params
 from sudo_rm_rf_tpu_torch.models import attentive as tatt
 from sudo_rm_rf_tpu_torch.train import trainer as ttrainer
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 HP = dict(out_channels=16, in_channels=32, num_blocks=2, upsampling_depth=3,
           enc_kernel_size=21, enc_num_basis=16, num_sources=2)

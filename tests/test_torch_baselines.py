@@ -36,6 +36,7 @@ from sudo_rm_rf_tpu_torch.models.baselines import demucs as tdemucs
 from sudo_rm_rf_tpu_torch.models.baselines.layers import torch_lstm
 from sudo_rm_rf_tpu_torch.models.layers import Conv1d, ConvTranspose1d
 from sudo_rm_rf_tpu_torch.utils import CheckpointManager, benchmark
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 CASES = {
     "convtasnet": ("convtasnet", dict(enc_dim=48, feature_dim=16, layer=3, stack=2),

@@ -16,6 +16,7 @@ import torch
 from sudo_rm_rf_tpu_torch import models
 from sudo_rm_rf_tpu_torch.cli import bench as bench_cli
 from sudo_rm_rf_tpu_torch.utils import benchmark
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 TOY = dict(out_channels=16, in_channels=32, num_blocks=2, upsampling_depth=3,
            enc_kernel_size=21, enc_num_basis=16, num_sources=2)

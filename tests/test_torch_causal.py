@@ -37,6 +37,7 @@ from sudo_rm_rf_tpu_torch.config import ModelConfig
 from sudo_rm_rf_tpu_torch.convert import load_jax_params
 from sudo_rm_rf_tpu_torch.inference import StreamingSeparator
 from sudo_rm_rf_tpu_torch.models.causal_sudormrf import CausalConv1d, causal_mask
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 HP = dict(in_audio_channels=1, out_channels=16, in_channels=32, num_blocks=1,
           upsampling_depth=2, enc_kernel_size=21, enc_num_basis=16, num_sources=2)

@@ -36,6 +36,7 @@ from sudo_rm_rf_tpu_torch.convert.flax_checkpoint import (
 from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import params_to_state_dict
 from sudo_rm_rf_tpu_torch.train import trainer as ttrainer
 from sudo_rm_rf_tpu_torch.utils import CheckpointManager
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 TOY = dict(out_channels=16, in_channels=32, num_blocks=2, upsampling_depth=2,
            enc_kernel_size=21, enc_num_basis=16, num_sources=2)

@@ -25,6 +25,7 @@ from sudo_rm_rf_tpu_torch.data.libri2mix import LibriMixDataset
 from sudo_rm_rf_tpu_torch.data.synthetic import write_wham_corpus
 from sudo_rm_rf_tpu_torch.data.wham import WhamDataset
 from sudo_rm_rf_tpu_torch.utils import logging as tlogging
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 SR = 8000
 

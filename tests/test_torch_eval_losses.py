@@ -23,6 +23,7 @@ from sudo_rm_rf_tpu import losses as jl
 from sudo_rm_rf_tpu.losses import bss_eval as jbss
 from sudo_rm_rf_tpu_torch import losses as tl
 from sudo_rm_rf_tpu_torch.losses import bss_eval as tbss
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 VAL = dict(rtol=1e-5, atol=1e-5)
 

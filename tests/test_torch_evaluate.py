@@ -25,6 +25,7 @@ import torch
 from sudo_rm_rf_tpu_torch import models
 from sudo_rm_rf_tpu_torch.data.synthetic import write_fuss_corpus, write_whamr_corpus
 from sudo_rm_rf_tpu_torch.utils import CheckpointManager
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HP = dict(out_channels=16, in_channels=32, num_blocks=1, upsampling_depth=2,

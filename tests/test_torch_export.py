@@ -24,6 +24,7 @@ from sudo_rm_rf_tpu.parallel import make_mesh
 from sudo_rm_rf_tpu.train import trainer as jtrainer
 from sudo_rm_rf_tpu.utils import checkpoint as jcheckpoint
 from sudo_rm_rf_tpu_torch.data.synthetic import write_hierarchical_corpus
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 HP = dict(out_channels=16, in_channels=32, num_blocks=1, upsampling_depth=2,
           enc_kernel_size=21, enc_num_basis=16)

@@ -42,6 +42,7 @@ from sudo_rm_rf_tpu_torch.models import groupcomm_sudormrf as tgc
 from sudo_rm_rf_tpu_torch.models.groupcomm_sudormrf import TAC
 from sudo_rm_rf_tpu_torch.ops import uconv as U
 from sudo_rm_rf_tpu_torch.train import trainer as ttrainer
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 HP = dict(in_audio_channels=1, out_channels=32, in_channels=64, num_blocks=1,
           upsampling_depth=3, enc_kernel_size=21, enc_num_basis=24, num_sources=2,

@@ -26,6 +26,7 @@ from sudo_rm_rf_tpu_torch.data import setup as tsetup
 from sudo_rm_rf_tpu_torch.data.synthetic import write_hierarchical_corpus
 from sudo_rm_rf_tpu_torch.prep import hierarchical as tprep
 from sudo_rm_rf_tpu_torch.utils import joblib_format
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -13,6 +13,7 @@ import torch
 
 from sudo_rm_rf_tpu import losses as jl
 from sudo_rm_rf_tpu_torch import losses as tl
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 VAL = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-4)

@@ -19,6 +19,7 @@ from sudo_rm_rf_tpu.models.fast_inference import improved_forward_fast as jax_fa
 from sudo_rm_rf_tpu_torch import models
 from sudo_rm_rf_tpu_torch.convert import load_jax_params
 from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 TOY = dict(out_channels=32, in_channels=64, num_blocks=2, upsampling_depth=3,
            enc_kernel_size=21, enc_num_basis=24, num_sources=2)

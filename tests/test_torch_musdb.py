@@ -44,6 +44,7 @@ from sudo_rm_rf_tpu_torch.data import setup as tsetup
 from sudo_rm_rf_tpu_torch.data.synthetic import write_musdb_corpus, write_track
 from sudo_rm_rf_tpu_torch.train import experiment as texp
 from sudo_rm_rf_tpu_torch.train import trainer as ttrainer
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HP = dict(out_channels=16, in_channels=32, num_blocks=1, upsampling_depth=2,

@@ -19,6 +19,7 @@ from sudo_rm_rf_tpu import ops as jops
 from sudo_rm_rf_tpu.ops import pad as jpad
 from sudo_rm_rf_tpu_torch import ops as tops
 from sudo_rm_rf_tpu_torch.ops import pad as tpad
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -114,7 +115,9 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
     its test split into shards and reads them back, reads a preprocessed
     folder and draws a heatmap (if matplotlib is there), without importing
     JAX, any module of the JAX package, joblib, msgpack or flax; asking for
-    CUDA where there is none raises."""
+    CUDA where there is none raises. Then a 2-rank torchrun launch trains
+    with ``--n_model 2`` and separates with ``--mode seq_parallel`` (within
+    1 LSB of one rank), and no rank imports any of those either."""
     code = textwrap.dedent("""
         import os, sys
         import numpy as np
@@ -278,6 +281,54 @@ def test_port_imports_no_jax_and_never_falls_back(tmp_path):
         foreign = sorted(k for k in sys.modules if k.split(".")[0] in (
             "jax", "sudo_rm_rf_tpu", "joblib", "msgpack", "flax"))
         assert not foreign, foreign
+        # a 2-rank torchrun launch (gloo on the CPU): --n_model 2 training,
+        # then --mode seq_parallel separation one time shard a rank, within
+        # 1 LSB of the one-rank CLI; no rank imports JAX either
+        import subprocess
+        import textwrap
+        from sudo_rm_rf_tpu_torch.inference.sequence_parallel import default_halo_frames
+        align = 10 * 2 ** hp["upsampling_depth"]
+        per = -(-default_halo_frames(1, hp["upsampling_depth"]) * 10 // align) * align
+        long_wav = os.path.join(tmp, "long.wav")
+        wavfile.write(long_wav, 8000, (np.random.default_rng(1).standard_normal(4 * per)
+                                       * 3000).astype(np.int16))
+        seq_argv = ["--checkpoint", os.path.join(tmp, "relu.pt"), "--model_type", "relu",
+                    "--input", long_wav, "--mode", "seq_parallel", "--device", "cpu", *hp_argv]
+        rank_script = os.path.join(tmp, "rank.py")
+        with open(rank_script, "w") as fh:
+            fh.write(textwrap.dedent('''
+                import json, sys
+                import torch.distributed as dist
+                from sudo_rm_rf_tpu_torch.cli import separate, train
+                from sudo_rm_rf_tpu_torch.parallel import launch_group
+                argv = json.loads(sys.argv[1])
+                with launch_group("cpu") as joined:
+                    assert joined and dist.get_world_size() == 2
+                    assert train.main(argv["train"]) == 0
+                    assert separate.main(argv["separate"]) == 0
+                foreign = sorted(k for k in sys.modules if k.split(".")[0] in (
+                    "jax", "sudo_rm_rf_tpu", "joblib", "msgpack", "flax"))
+                assert not foreign, foreign
+                print("RANK-OK")
+            '''))
+        launch_argv = {"train": train_argv + ["--n_model", "2", "--device", "cpu",
+                                              "-clp", os.path.join(tmp, "ckpt2"),
+                                              "-elp", os.path.join(tmp, "logs2")],
+                       "separate": seq_argv + ["--out_dir", os.path.join(tmp, "seq2")]}
+        import json
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2", rank_script, json.dumps(launch_argv)],
+            capture_output=True, text=True, timeout=240)
+        assert proc.returncode == 0 and proc.stdout.count("RANK-OK") == 2, (
+            proc.stdout[-3000:] + proc.stderr[-3000:])
+        assert separate.main(seq_argv + ["--out_dir", os.path.join(tmp, "seq1")]) == 0
+        for s in (1, 2):
+            one = wavfile.read(os.path.join(tmp, "seq1", f"long_s{s}.wav"))[1].astype(int)
+            two = wavfile.read(os.path.join(tmp, "seq2", f"long_s{s}.wav"))[1].astype(int)
+            assert one.shape == two.shape and np.abs(one - two).max() <= 1
+        assert any(n.startswith("best_") for n in os.listdir(
+            os.path.join(tmp, "ckpt2", "sudo_tpu_experiment")))
         if not torch.cuda.is_available():
             for call in (
                 lambda: models.get_model("relu", num_blocks=1, device="cuda"),

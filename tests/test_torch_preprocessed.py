@@ -18,6 +18,7 @@ from sudo_rm_rf_tpu.data.preprocessed import PreprocessedDataset as JPreprocesse
 from sudo_rm_rf_tpu.prep import hierarchical as jprep
 from sudo_rm_rf_tpu_torch.data.preprocessed import PreprocessedDataset
 from sudo_rm_rf_tpu_torch.prep import hierarchical as tprep
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 ITEMS = ["mixture_wav", "clean_wav_0", "clean_wav_1", "wav"]
 

@@ -39,6 +39,7 @@ from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import params_to_state_dict
 from sudo_rm_rf_tpu_torch.train import experiment
 from sudo_rm_rf_tpu_torch.train import trainer as ttrainer
 from sudo_rm_rf_tpu_torch.utils import CheckpointManager
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 HP = dict(out_channels=16, in_channels=32, num_blocks=1, upsampling_depth=2,
           enc_kernel_size=21, enc_num_basis=16, num_sources=2)

@@ -39,6 +39,7 @@ from sudo_rm_rf_tpu_torch.data.whamr import WhamRDataset
 from sudo_rm_rf_tpu_torch.train import augment
 from sudo_rm_rf_tpu_torch.train import experiment as texp
 from sudo_rm_rf_tpu_torch.train import trainer as ttrainer
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 TOY = dict(out_channels=32, in_channels=64, num_blocks=2, upsampling_depth=3,
            enc_kernel_size=21, enc_num_basis=24)

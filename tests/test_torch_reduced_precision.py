@@ -39,6 +39,7 @@ from sudo_rm_rf_tpu_torch.convert import load_jax_params
 from sudo_rm_rf_tpu_torch.models import fast_inference as tfi
 from sudo_rm_rf_tpu_torch.models import quantized as tq
 from sudo_rm_rf_tpu_torch.ops import uconv as U
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 # the toy Improved model of the measured table (U3, out 32, in 64, depth 4,
 # 64 bases, 2 x 4001 samples) and a two-block GroupComm of group 4

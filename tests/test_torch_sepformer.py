@@ -28,6 +28,7 @@ from sudo_rm_rf_tpu.models.baselines import sepformer as jsep
 from sudo_rm_rf_tpu_torch import models
 from sudo_rm_rf_tpu_torch.convert import load_jax_params, unstack_block_params
 from sudo_rm_rf_tpu_torch.models.baselines import sepformer as tsep
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 HP = dict(encoder_kernel_size=16, encoder_out_nchannels=16, masknet_chunksize=20,
           masknet_numlayers=2, masknet_numspks=2, intra_numlayers=2, inter_numlayers=2,

@@ -26,6 +26,7 @@ from sudo_rm_rf_tpu_torch.convert import load_jax_params
 from sudo_rm_rf_tpu_torch.data.base import read_wav
 from sudo_rm_rf_tpu_torch.inference import OverlapAddSeparator
 from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 HP = dict(out_channels=16, in_channels=32, num_blocks=2, upsampling_depth=3,
           enc_kernel_size=21, enc_num_basis=24, num_sources=2)

@@ -19,6 +19,7 @@ from sudo_rm_rf_tpu.data.wham import WhamDataset as JWham
 from sudo_rm_rf_tpu_torch.data import ShardedDataset, pack_dataset, write_shards
 from sudo_rm_rf_tpu_torch.data.synthetic import write_wham_corpus
 from sudo_rm_rf_tpu_torch.data.wham import WhamDataset
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 
 def _records(n=7, seed=0):

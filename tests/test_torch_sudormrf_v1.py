@@ -31,6 +31,7 @@ from sudo_rm_rf_tpu.models import sudormrf as jv1
 from sudo_rm_rf_tpu_torch import models
 from sudo_rm_rf_tpu_torch.convert import load_jax_params
 from sudo_rm_rf_tpu_torch.models import sudormrf as tv1
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 HP = dict(out_channels=16, in_channels=32, num_blocks=1, upsampling_depth=2,
           enc_kernel_size=21, enc_num_basis=24, num_sources=2)

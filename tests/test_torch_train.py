@@ -38,6 +38,7 @@ from sudo_rm_rf_tpu_torch.convert.torch_checkpoint import params_to_state_dict
 from sudo_rm_rf_tpu_torch.train import augment
 from sudo_rm_rf_tpu_torch.train import trainer as ttrainer
 from sudo_rm_rf_tpu_torch.utils import CheckpointManager
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 TOY = dict(out_channels=32, in_channels=64, num_blocks=2, upsampling_depth=3,
            enc_kernel_size=21, enc_num_basis=24, num_sources=2)
@@ -386,7 +387,6 @@ def test_mixture_consistency_in_the_step_matches_jax(weights):
     # taken since radam_cosine was ported; its cosine decay needs more steps
     # than the warmup, as optax's schedule does
     (dict(optimizer="radam_cosine", total_steps=1000), ValueError),
-    (dict(shard_params=True), NotImplementedError),
     # taken since train_dropout was ported, but only by a model with dropout
     (dict(train_dropout=True), ValueError),
     # taken since upload_dtype was ported, but only as a floating dtype
@@ -397,6 +397,22 @@ def test_trainer_raises_for_options_that_wait(cfg, error):
     with pytest.raises(error, match="ROADMAP|compute_dtype|upload_dtype|no dropout layers|"
                                     "warmup_steps"):
         ttrainer.Trainer(models.get_model("relu", **TOY), ttrainer.TrainerConfig(**cfg))
+
+
+def test_shard_params_without_a_model_group_trains_as_replicated():
+    """shard_params is taken since storage TP was ported; with no mesh (one
+    process, a model group of one) it shards nothing, as JAX's is a no-op on
+    model=1, and the step is the replicated one bit for bit."""
+    batch, draws = _sources(30), _jax_draws(jax.random.key(3), B, S)
+    got = {}
+    for shard in (False, True):
+        tr, state = _port(shard_params=shard)
+        assert tr.shards is None and state.shards is None
+        _, m = tr.train_step(state, batch, draws)
+        got[shard] = (float(m["loss"]), tr.model.state_dict())
+    assert got[True][0] == got[False][0]
+    for k, v in got[False][1].items():
+        assert torch.equal(got[True][1][k], v), k
 
 
 def test_trainer_rejects_the_forward_only_kernel():
@@ -508,7 +524,9 @@ def test_run_experiment_stops_early_on_a_plateau(tmp_path, monkeypatch):
     (["--chain_steps", "25"], NotImplementedError),
     (["--max_inflight", "2"], NotImplementedError),
     (["--device_data"], NotImplementedError),
-    (["--n_model", "2"], NotImplementedError),
+    # taken since tensor parallelism was ported, over a launch of >= 2 ranks:
+    # in one process it exceeds the ranks, as JAX's exceeds its devices
+    (["--n_model", "2"], ValueError),
     (["--remat_blocks", "--block_impl", "kernel"], ValueError),
     # taken since MUSDB was ported, but on a mono model input only, as in JAX
     (["--train", "MUSDB", "--n_channels", "2"], ValueError),

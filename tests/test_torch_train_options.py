@@ -13,6 +13,7 @@ import torch
 from sudo_rm_rf_tpu_torch import models
 from sudo_rm_rf_tpu_torch.config import ModelConfig
 from sudo_rm_rf_tpu_torch.models import improved_sudormrf
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 TOY = {"relu": dict(out_channels=16, in_channels=32, num_blocks=2, upsampling_depth=2,
                     enc_kernel_size=21, enc_num_basis=16, num_sources=2),

@@ -21,6 +21,7 @@ from sudo_rm_rf_tpu.models.improved_sudormrf import UConvBlock as JaxUConvBlock
 from sudo_rm_rf_tpu.ops.pallas import uconv as J
 from sudo_rm_rf_tpu_torch.models.improved_sudormrf import UConvBlock
 from sudo_rm_rf_tpu_torch.ops import uconv as U
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse, module scope)
 
 # (depth, T, Ci, Co): the JAX kernel tests' shapes; a ragged one whose
 # channel counts fit no GEMM tile and whose deepest level has odd length; one
