@@ -172,14 +172,33 @@
    the two ranks against the one-rank CLI (int16, 1 LSB); (e)
    ``sudo-torch-train --n_model 2`` over the two ranks for one epoch,
    rank 0's checkpoint loaded into a one-process model.
-21. Print JSON lines of the serving, training, evaluation, recipe,
+21. The published recipes as written (``resident``): (a)
+   ``docs/runs/musdb_synth/hparams.json`` through ``sudo-torch-train``, every
+   key the flag of its name (``block_impl auto``, ``chain_steps 25``,
+   ``max_inflight 2``, ``device_data``, bf16, 4 stem slots, bs8), on the
+   MUSDB corpus cut with n_train 400 (an epoch of 50 steps) at ``--seed 1``:
+   the autotune table and pick, the device pool's MiB, 0 bytes copied from
+   the host a step, the epoch, the profiled resident epoch's ms a step and
+   idle share, val SI-SDRi, 0 K1 launches; its checkpoint separating a 30 s
+   track through K1 (16 launches a batch, >= 80 dB from ``fma``). (b) The
+   same epoch on host batches with the pick, chained (25, 2 in flight) and
+   one step a dispatch, under cuDNN's deterministic algorithms: the step
+   losses equal bit for bit; each run's ms a step, copies a step and idle
+   share. (c) ``docs/runs/improved_u16_synth_full/hparams.json`` on the
+   AUGMENTED corpus cut: the val set mixed on the card from its draws within
+   rtol 1e-4 / atol 2e-5 of the host loader's items, one 50-step resident
+   epoch's ms a step and idle share. (d) The native wav reader built; the
+   header-only ``length_metadata`` of the MUSDB corpus against the decoding
+   one, a 4-stem ``read_wav_window`` item against scipy's.
+22. Print JSON lines of the serving, training, evaluation, recipe,
    augmented, reduced-precision, bench, causal, zoo, baseline, MUSDB,
-   long-form and parallel results, each phase's seconds, and one line of
+   long-form, parallel and resident results, each phase's seconds, and one line of
    kernel results (K1 with an fp32 and with a bf16 pyramid; the first with
    the AUGMENTED evaluation's, the MUSDB separation's, the long-form passes'
    and the DP overlap-add's launches, K1's time at the long-form block
    shape, and its 0 launches on the causal, v1, attentive, baseline, MUSDB,
-   DP and TP training paths and the n-shard bodies), then
+   DP and TP training paths and the n-shard bodies, and the resident
+   phase's training paths and separation), then
    ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
    exits non-zero. ``--only PHASE ...`` runs some phases (a rehearsal on
    the card, without the kernels and ok lines).
@@ -282,8 +301,8 @@ AUGMENTED_TRAIN_ARGV = ("--block_impl", "xla", "--compute_dtype", "bfloat16")
 # the MUSDB phase: docs/runs/musdb_synth/hparams.json (Improved U16/512 at
 # out 256 with 4 stem slots, bs8, 4 s at 8 kHz, Adam 1e-3, clip 5, clamp 30,
 # stepped decay at patience 10, bf16) with the xla blocks (what JAX's
-# auto-tuner picked for that run) and one step a dispatch; block_impl auto,
-# chain_steps 25 and device_data are not ported (ROADMAP queue 1, item 11).
+# auto-tuner picked for that run), on host batches; the resident phase runs
+# the recipe as written.
 # The synthetic corpus of 30 s tracks is cut from 60 train and 12 test tracks
 # to 8 and 8 (a val batch of 8 needs 8 tracks: one segment a track, and the
 # loader drops a partial batch), n_train 2000 -> 64, n_val 24 -> 8. The
@@ -303,6 +322,25 @@ MUSDB_SEED = 1
 MUSDB_PROBE_SEEDS = 8
 UPLOAD_RTOL = UPLOAD_ATOL = 0.05
 MUSDB_CPU_BATCH = 2
+# the resident phase: docs/runs/musdb_synth/hparams.json as written (block_impl
+# auto, chain_steps 25, max_inflight 2, device_data, bf16, 4 stem slots, bs8)
+# on the MUSDB phase's corpus cut, with n_train 2000 -> 400 (an epoch of 50
+# steps), n_val and n_test 24 -> 8, one epoch, at --seed 1 (MUSDB_SEED); then
+# the same epoch on host batches, chained and one step a dispatch; and
+# docs/runs/improved_u16_synth_full/hparams.json on the AUGMENTED phase's
+# corpus cut, n_train 20000 -> 400, n_val and n_test 3000 -> 16. The keys
+# the CLI derives from others are not flags (RESIDENT_DERIVED); every other
+# key is the flag of its name or of RESIDENT_FLAGS.
+RESIDENT_HPARAMS = ("docs", "runs", "musdb_synth", "hparams.json")
+RESIDENT_AUG_HPARAMS = ("docs", "runs", "improved_u16_synth_full", "hparams.json")
+RESIDENT_CUT = dict(MUSDB_CUT, n_train=400)
+RESIDENT_AUG_CUT = dict(AUGMENTED_CUT, n_train=400)
+RESIDENT_FLAGS = {"learning_rate": "-lr", "patience_epochs": "--patience", "batch_size": "-bs",
+                  "fs": "-fs", "n_heads": "--att_n_heads", "checkpoints_path": "-clp"}
+RESIDENT_DERIVED = ("num_sources", "in_audio_channels", "scan_blocks")
+HOST_LOADER_TOL = dict(rtol=1e-4, atol=2e-5)  # JAX's, tests/test_resident.py
+RESIDENT_PROFILED = 10  # the last train steps of an epoch traced for its idle share
+RESIDENT_IO_REPS = 20
 # reduced-precision serving: the bench's gates (bench.py) and the batches
 # timed; an int8 output under INT8_MIN_DB is a fault, not a miss of the gate
 BF16_GATE_DB, INT8_GATE_DB, INT8_MIN_DB = 35.0, 25.0, 15.0
@@ -1336,15 +1374,76 @@ def augmented_phase(torch, np, tmp: str, hp: dict, device: str = "cuda",
 
 
 def _musdb_epoch(out: str) -> dict:
-    """The numbers of ``sudo-torch-train``'s MUSDB epoch line."""
-    m = re.search(r"^epoch 1/1 tr_loss=(\S+) val_SISDRi=(\S+) \((\S+)s: data=(\S+) "
-                  r"disp=(\S+) val=(\S+) ckpt=(\S+?)(?: h2d=(\d+) B/step)?\)$", out, re.M)
+    """The numbers of ``sudo-torch-train``'s first epoch line: its metrics
+    (``val_SISDRi`` as ``val_sisdri``, ``test_SISDRi`` as ``test_sisdri``),
+    phases and the bytes and copies from the host a step (0 without)."""
+    m = re.search(r"^epoch 1/\d+ (.*?) \((\S+)s: data=(\S+) disp=(\S+) val=(\S+) "
+                  r"ckpt=(\S+?)(?: h2d=(\d+) B/step, (\S+) copies/step)?\)$", out, re.M)
     if m is None:
-        raise RuntimeError(f"no MUSDB epoch line in {out[-2000:]}")
-    keys = ("tr_loss", "val_sisdri", "epoch_s", "data_s", "disp_s", "val_s", "ckpt_s")
-    row = {k: float(v) for k, v in zip(keys, m.groups())}
-    row["h2d_bytes_per_step"] = int(m.group(8)) if m.group(8) else 0
+        raise RuntimeError(f"no epoch line in {out[-2000:]}")
+    row = {k.replace("_SISDRi", "_sisdri"): float(v)
+           for k, v in (kv.split("=") for kv in m.group(1).split())}
+    keys = ("epoch_s", "data_s", "disp_s", "val_s", "ckpt_s")
+    row.update({k: float(v) for k, v in zip(keys, m.groups()[1:6])})
+    row["h2d_bytes_per_step"] = int(m.group(7)) if m.group(7) else 0
+    row["h2d_copies_per_step"] = float(m.group(8)) if m.group(8) else 0.0
     return row
+
+
+def separate_musdb_track(torch, np, tmp: str, root: str, ckpt: str, hp: dict,
+                         track_seconds: float, bs: int, device: str, tag: str) -> dict:
+    """``sudo-torch-separate --num_sources 4`` of the first 30 s test track
+    from ``ckpt`` through K1 (launches counted from 0: 16 a bs batch on a
+    card), each written stem's fixed-order SI-SDRi, and the kernel forward
+    of a bs batch of the track's chunks against the ``fma`` forward at the
+    same weights (>= MIN_FIDELITY_DB)."""
+    from sudo_rm_rf_tpu_torch.cli.separate import main as separate_main
+    from sudo_rm_rf_tpu_torch.data.base import read_wav
+    from sudo_rm_rf_tpu_torch.data.musdb import STEMS
+    from sudo_rm_rf_tpu_torch.models import load_checkpoint_model
+    from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+
+    track = os.path.join(root, "test", "track000")
+    n = int(track_seconds * FS)
+    chunk = int(CHUNK_SECONDS * FS)
+    batches = n_forward_batches(n, chunk, bs)
+    sep_dir = os.path.join(tmp, f"sep_{tag}")
+    U.fused_uconv_block.launches = 0
+    t0 = time.perf_counter()
+    run_cli(separate_main, ["--checkpoint", ckpt, "--input", os.path.join(track, "mixture.wav"),
+                            "--out_dir", sep_dir, "--device", device, "--num_sources",
+                            str(hp["num_sources"]), "--batch_chunks", str(bs), "-fs", str(FS),
+                            "--chunk_seconds", str(CHUNK_SECONDS), *hp_argv(hp)])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    sep_s = time.perf_counter() - t0
+    sep_launches = U.fused_uconv_block.launches
+    want = hp["num_blocks"] * batches if device == "cuda" else 0
+    if sep_launches != want:
+        raise RuntimeError(f"{tag}: separating the track took {sep_launches} K1 launches, "
+                           f"want {want}")
+    mix = read_wav(os.path.join(track, "mixture.wav"))[1]
+    ests = [read_wav(os.path.join(sep_dir, f"mixture_s{s}.wav"))[1]
+            for s in range(1, hp["num_sources"] + 1)]
+    if not all(e.shape == (n,) and np.isfinite(e).all() for e in ests):
+        raise RuntimeError("bad separated stems")
+    refs = [read_wav(os.path.join(track, f"{stem}.wav"))[1] for stem in STEMS]
+    per_stem = [si_sdr_db(np, e, r) - si_sdr_db(np, mix, r) for e, r in zip(ests, refs)]
+    model = load_checkpoint_model("relu", hp, ckpt, device)
+    x = torch.from_numpy(np.stack([mix[i * chunk // 2:i * chunk // 2 + chunk]
+                                   for i in range(bs)])[:, None]).to(device)
+    ker = improved_forward_fast(model, x, impl="kernel")
+    ref = improved_forward_fast(model, x, impl="fma")
+    fid = fidelity_db(np, ref.double().cpu().numpy(), ker.double().cpu().numpy())
+    print(f"{tag} separate: a {track_seconds} s track in {batches} batches of {bs}, "
+          f"{sep_launches} K1 launches (counted), {sep_s:.2f} s wall; fixed-order SI-SDRi of "
+          f"the 4 written stems {dict(zip(STEMS, (round(v, 3) for v in per_stem)))}, mean "
+          f"{float(np.mean(per_stem)):.3f} dB; bs{bs} kernel forward vs fma {fid:.2f} dB")
+    if not fid >= MIN_FIDELITY_DB:
+        raise RuntimeError(f"fidelity {fid:.2f} dB < {MIN_FIDELITY_DB} dB")
+    return dict(launches=sep_launches, forward_batches=batches, s=sep_s,
+                sisdri_by_stem=dict(zip(STEMS, per_stem)), fidelity_db=fid)
 
 
 def _wsj0mix_layout(np, root: str, n: int = 2, seconds: float = 0.5) -> str:
@@ -1401,16 +1500,12 @@ def musdb_phase(torch, np, tmp: str, hp: dict = MUSDB, device: str = "cuda",
     import importlib.util
 
     from sudo_rm_rf_tpu_torch import models
-    from sudo_rm_rf_tpu_torch.cli.separate import main as separate_main
     from sudo_rm_rf_tpu_torch.cli.train import main as train_main
     from sudo_rm_rf_tpu_torch.config import DataConfig, ExperimentConfig, ModelConfig
-    from sudo_rm_rf_tpu_torch.data.base import read_wav
-    from sudo_rm_rf_tpu_torch.data.musdb import STEMS, MusdbDataset
+    from sudo_rm_rf_tpu_torch.data.musdb import MusdbDataset
     from sudo_rm_rf_tpu_torch.data.preprocessed import PreprocessedDataset
     from sudo_rm_rf_tpu_torch.data.shards import ShardedDataset, pack_dataset
     from sudo_rm_rf_tpu_torch.data.synthetic import write_musdb_corpus
-    from sudo_rm_rf_tpu_torch.models import load_checkpoint_model
-    from sudo_rm_rf_tpu_torch.models.fast_inference import improved_forward_fast
     from sudo_rm_rf_tpu_torch.ops import uconv as U
     from sudo_rm_rf_tpu_torch.prep.hierarchical import convert_wsj0mix_to_universal
     from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig
@@ -1544,44 +1639,8 @@ def musdb_phase(torch, np, tmp: str, hp: dict = MUSDB, device: str = "cuda",
     packed.close()
 
     # the checkpoint through sudo-torch-separate: four stems of a 30 s track
-    track = os.path.join(root, "test", "track000")
-    n = int(cut["track_seconds"] * FS)
-    chunk = int(CHUNK_SECONDS * FS)
-    batches = n_forward_batches(n, chunk, bs)
-    sep_dir = os.path.join(tmp, "sep_musdb")
-    U.fused_uconv_block.launches = 0
-    t0 = time.perf_counter()
-    run_cli(separate_main, ["--checkpoint", ckpt, "--input", os.path.join(track, "mixture.wav"),
-                            "--out_dir", sep_dir, "--device", device, "--num_sources",
-                            str(hp["num_sources"]), "--batch_chunks", str(bs), "-fs", str(FS),
-                            "--chunk_seconds", str(CHUNK_SECONDS), *hp_argv(hp)])
-    if device == "cuda":
-        torch.cuda.synchronize()
-    sep_s = time.perf_counter() - t0
-    sep_launches = U.fused_uconv_block.launches
-    want = hp["num_blocks"] * batches if device == "cuda" else 0
-    if sep_launches != want:
-        raise RuntimeError(f"separating the MUSDB track: {sep_launches} K1 launches, want {want}")
-    mix = read_wav(os.path.join(track, "mixture.wav"))[1]
-    ests = [read_wav(os.path.join(sep_dir, f"mixture_s{s}.wav"))[1]
-            for s in range(1, hp["num_sources"] + 1)]
-    if not all(e.shape == (n,) and np.isfinite(e).all() for e in ests):
-        raise RuntimeError("bad separated stems")
-    refs = [read_wav(os.path.join(track, f"{stem}.wav"))[1] for stem in STEMS]
-    per_stem = [si_sdr_db(np, e, r) - si_sdr_db(np, mix, r) for e, r in zip(ests, refs)]
-    # the kernel forward against the fma forward at the same weights
-    model = load_checkpoint_model("relu", hp, ckpt, device)
-    x = torch.from_numpy(np.stack([mix[i * chunk // 2:i * chunk // 2 + chunk]
-                                   for i in range(bs)])[:, None]).to(device)
-    ker = improved_forward_fast(model, x, impl="kernel")
-    ref = improved_forward_fast(model, x, impl="fma")
-    fid = fidelity_db(np, ref.double().cpu().numpy(), ker.double().cpu().numpy())
-    print(f"musdb separate: a {cut['track_seconds']} s track in {batches} batches of {bs}, "
-          f"{sep_launches} K1 launches (counted), {sep_s:.2f} s wall; fixed-order SI-SDRi of "
-          f"the 4 written stems {dict(zip(STEMS, (round(v, 3) for v in per_stem)))}, mean "
-          f"{float(np.mean(per_stem)):.3f} dB; bs{bs} kernel forward vs fma {fid:.2f} dB")
-    if not fid >= MIN_FIDELITY_DB:
-        raise RuntimeError(f"fidelity {fid:.2f} dB < {MIN_FIDELITY_DB} dB")
+    separate = separate_musdb_track(torch, np, tmp, root, ckpt, hp, cut["track_seconds"], bs,
+                                    device, "musdb")
 
     # a preprocessed folder written by the port's prep, read without joblib
     pre_root = convert_wsj0mix_to_universal(_wsj0mix_layout(np, os.path.join(tmp, "wsj")),
@@ -1599,9 +1658,349 @@ def musdb_phase(torch, np, tmp: str, hp: dict = MUSDB, device: str = "cuda",
     return dict(init_losses=init_losses, seed=MUSDB_SEED, train=f32, train_bf16_upload=b16,
                 upload_loss_gap=gap, **checks,
                 shards=dict(pack_s=pack_s, item_ms=item_ms, step_losses=loss_runs),
-                separate=dict(launches=sep_launches, forward_batches=batches, s=sep_s,
-                              sisdri_by_stem=dict(zip(STEMS, per_stem)), fidelity_db=fid),
+                separate=separate,
                 preprocessed_shapes=shapes, joblib_installed=joblib_here, phase_s=phase_s)
+
+
+def hparams_argv(hp: dict) -> list:
+    """``sudo-torch-train``'s flags for a run's hparams, each as written."""
+    argv = []
+    for key, value in hp.items():
+        flag = RESIDENT_FLAGS.get(key, f"--{key}")
+        if key in RESIDENT_DERIVED or value is None or value is False or value == []:
+            continue
+        if value is True:
+            argv.append(flag)
+        elif isinstance(value, list):
+            argv += [flag, *map(str, value)]
+        else:
+            argv += [flag, str(value)]
+    return argv
+
+
+def published_run(path, **cut) -> tuple:
+    """(argv, hparams) of the published run at ``path`` with the keys of
+    ``cut`` replaced; raises unless the CLI's config of the argv holds
+    exactly those hparams."""
+    from sudo_rm_rf_tpu_torch.cli.args import args_to_config, build_parser
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), *path)) as fh:
+        hp = json.load(fh)
+    unknown = set(cut) - set(hp)
+    if unknown:
+        raise RuntimeError(f"{unknown} are not keys of {path}")
+    hp.update(cut)
+    argv = hparams_argv(hp)
+    got = json.loads(json.dumps(args_to_config(build_parser().parse_args(argv)).hparams()))
+    if got != hp:
+        raise RuntimeError(f"{path}: the CLI took {argv} as "
+                           f"{ {k: v for k, v in got.items() if hp.get(k) != v} }")
+    return argv, hp
+
+
+@contextlib.contextmanager
+def profiled_epochs(torch, device: str, windows: list, profiled: int = RESIDENT_PROFILED):
+    """Inside, each resident epoch and each host-batch epoch that
+    ``sudo-torch-train`` runs in this process appends to ``windows`` its
+    wall ms (from a synchronize before it to one after its last step) and,
+    on a card, the device's busy ms, idle share and launches over its last
+    ``profiled`` train steps (``torch.profiler`` tracing the device from a
+    synchronize before the first of them to the epoch's end; the trace is
+    read after the wall time is taken). A whole 50-step epoch's trace took
+    17 s to collect; the profiler's host cost lands in those steps only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sudo_rm_rf_tpu_torch.train import experiment, resident
+    from sudo_rm_rf_tpu_torch.train.trainer import Trainer
+    from sudo_rm_rf_tpu_torch.utils.benchmark import device_busy
+
+    cuda = device.startswith("cuda")
+    run_epoch, host_epoch, train_step = (resident.ResidentData.run_epoch,
+                                         experiment.host_epoch, Trainer.train_step)
+    live: dict = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def counted_step(self, *args, **kwargs):
+        if "profile_from" not in live:  # a step outside an epoch (the autotuner's)
+            return train_step(self, *args, **kwargs)
+        live["calls"] += 1
+        if cuda and live["calls"] == live["profile_from"]:
+            sync()
+            live["prof"] = profile(activities=[ProfilerActivity.CUDA]).__enter__()
+            live["t_prof"] = time.perf_counter()
+        return train_step(self, *args, **kwargs)
+
+    def epoch(fn, steps_of):
+        def wrapper(*args, **kwargs):
+            steps = steps_of(*args)
+            live.update(calls=0, profile_from=max(steps - profiled, 0) + 1)
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            t_end = time.perf_counter()
+            del live["profile_from"]
+            window = dict(steps=steps, wall_ms=1e3 * (t_end - t0))
+            prof = live.pop("prof", None)
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                busy, launches = device_busy(prof)
+                slice_ms = 1e3 * (t_end - live["t_prof"])
+                window.update(profiled_steps=min(profiled, steps), profiled_ms=slice_ms,
+                              device_busy_ms=busy, idle_share=1 - busy / slice_ms,
+                              device_launches=launches)
+            windows.append(window)
+            return out
+        return wrapper
+
+    resident.ResidentData.run_epoch = epoch(run_epoch, lambda data, *a: data.steps_per_epoch)
+    experiment.host_epoch = epoch(host_epoch, lambda trainer, state, batches, *a: len(batches))
+    Trainer.train_step = counted_step
+    try:
+        yield
+    finally:
+        resident.ResidentData.run_epoch, experiment.host_epoch = run_epoch, host_epoch
+        Trainer.train_step = train_step
+
+
+def _autotune_table(out: str) -> tuple:
+    """(pick, rows) of the ``block_impl auto`` table the CLI printed."""
+    m = re.search(r"^block_impl auto -> (\w+)$", out, re.M)
+    rows = [dict(impl=r[0], batch_size=int(r[1]), ms_per_step=float(r[2]),
+                 audio_sec_per_sec=float(r[3]), picked=bool(r[4]))
+            for r in re.findall(r"^(xla|fma) +(\d+) +(\S+) +(\S+)( \*)?$", out, re.M)]
+    if m is None or not rows:
+        raise RuntimeError(f"no autotune table in {out[-2000:]}")
+    return m.group(1), rows
+
+
+def _train_run(torch, np, train_main, argv: list, logs: str, name: str, device: str,
+               steps: int, windows: list) -> tuple:
+    """One ``sudo-torch-train`` epoch of ``argv`` with K1's counts at 0
+    before it: the epoch line's numbers, the step losses, K1's launches,
+    the epoch's ms a step (to a synchronize) and the idle share of its last
+    steps (``profiled_epochs``); and the CLI's output."""
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+
+    U.fused_uconv_block.launches = U.fused_uconv_block.launches_bf16_pyramid = 0
+    n_windows = len(windows)
+    t0 = time.perf_counter()
+    with profiled_epochs(torch, device, windows):
+        out = run_cli(train_main, argv + ["-elp", logs, "--experiment_name", name,
+                                          "--device", device])
+    row = dict(_musdb_epoch(out), cli_s=time.perf_counter() - t0,
+               k1_launches=U.fused_uconv_block.launches
+               + U.fused_uconv_block.launches_bf16_pyramid)
+    row["step_losses"] = np.load(os.path.join(logs, name, "tr_loss", "epoch_1.npy")).tolist()
+    if len(windows) != n_windows + 1:
+        raise RuntimeError(f"{name}: {len(windows) - n_windows} profiled epochs, want 1")
+    window = windows[-1]
+    row.update(epoch_window=window, ms_per_step=window["wall_ms"] / window["steps"],
+               idle_share=window.get("idle_share"))
+    if row["k1_launches"]:
+        raise RuntimeError(f"{name}: the training path launched K1 {row['k1_launches']} times")
+    if len(row["step_losses"]) != steps or not np.isfinite(row["step_losses"]).all():
+        raise RuntimeError(f"{name}: step losses {row['step_losses']}")
+    return row, out
+
+
+def _fmt_idle(row: dict) -> str:
+    share = row.get("idle_share")
+    if share is None:
+        return "not measured (no card)"
+    return f"{share:.1%} over its last {row['epoch_window']['profiled_steps']} steps"
+
+
+def resident_phase(torch, np, tmp: str, device: str = "cuda", cut: dict = RESIDENT_CUT,
+                   aug_cut: dict = RESIDENT_AUG_CUT, rehearsal: dict | None = None) -> dict:
+    """Device-resident data, chained steps, the in-flight bound, block_impl
+    auto and the native reader, on the training path as the published
+    recipes run it:
+
+    (a) ``docs/runs/musdb_synth/hparams.json`` as written through
+    ``sudo-torch-train`` for one 50-step epoch: the autotune table and pick,
+    the pool's MiB, the bytes copied a step (0), the epoch's s, the ms a
+    step and idle share of the profiled resident epoch, val SI-SDRi, 0 K1
+    launches; then its checkpoint separating a 30 s track through K1.
+    (b) the same epoch on host batches (no ``device_data``, ``block_impl``
+    the pick), chained (25, in flight 2) and one step a dispatch (1, no
+    bound), under cuDNN's deterministic algorithms: equal step losses bit
+    for bit; each run's ms a step, copies a step and idle share.
+    (c) ``docs/runs/improved_u16_synth_full/hparams.json`` on the AUGMENTED
+    corpus cut: the val set mixed on the card from its draws against the
+    host loader's items (JAX's bounds), one resident epoch's ms a step and
+    idle share.
+    (d) the native reader built; the header-only ``length_metadata`` over
+    the corpus's wavs against the decoding one, a ``read_wav_window`` item
+    against scipy's.
+
+    ``rehearsal`` replaces hparams (widths, batch, length, clamp) for a run
+    on the CPU."""
+    from sudo_rm_rf_tpu_torch import native
+    from sudo_rm_rf_tpu_torch.cli.train import main as train_main
+    from sudo_rm_rf_tpu_torch.data import base as data_base
+    from sudo_rm_rf_tpu_torch.data.musdb import STEMS
+    from sudo_rm_rf_tpu_torch.data.setup import create_augmented_loader
+    from sudo_rm_rf_tpu_torch.data.synthetic import (write_hierarchical_corpus,
+                                                     write_musdb_corpus)
+    from sudo_rm_rf_tpu_torch.train import resident
+
+    t_phase = time.perf_counter()
+    rehearsal = rehearsal or {}
+    logs, windows = os.path.join(tmp, "logs"), []
+
+    # (a) the MUSDB recipe as written
+    root = write_musdb_corpus(os.path.join(tmp, "musdb"), cut["train_tracks"],
+                              cut["test_tracks"], fs=FS, seconds=cut["track_seconds"], seed=0)
+    argv, hp = published_run(RESIDENT_HPARAMS, n_train=cut["n_train"], n_val=cut["n_val"],
+                             n_test=cut["n_val"], n_epochs=1, seed=MUSDB_SEED,
+                             checkpoints_path=os.path.join(tmp, "ckpt"), **rehearsal)
+    steps = hp["n_train"] // hp["batch_size"]
+    print(f"resident (a): {os.path.join(*RESIDENT_HPARAMS)} as written, cut to n_train "
+          f"{hp['n_train']} ({steps} steps of {hp['batch_size']}), n_val and n_test "
+          f"{hp['n_val']}, 1 epoch, --seed {hp['seed']}: sudo-torch-train {' '.join(argv)}")
+    a, out = _train_run(torch, np, train_main, argv + ["--musdb_root", root], logs,
+                        "resident_musdb", device, steps, windows)
+    pick, table = _autotune_table(out)
+    pool = re.search(r"^device-resident pool: (\S+) MiB, (\d+) steps/epoch, built in (\S+)s",
+                     out, re.M)
+    if pool is None or int(pool.group(2)) != steps:
+        raise RuntimeError(f"no resident pool of {steps} steps: {pool and pool.group(0)}")
+    a.update(pick=pick, autotune=table, pool_mib=float(pool.group(1)),
+             pool_build_s=float(pool.group(3)))
+    timed = "; ".join(f"{r['impl']} {r['ms_per_step']} ms" for r in table)
+    print(f"resident (a): block_impl auto -> {pick} ({timed}); pool {a['pool_mib']} MiB "
+          f"built in {a['pool_build_s']} s; {a['h2d_bytes_per_step']} B copied from the host "
+          f"a step; epoch {a['epoch_s']} s (disp {a['disp_s']}, val {a['val_s']}, ckpt "
+          f"{a['ckpt_s']}), resident epoch {a['ms_per_step']:.2f} ms a step, idle "
+          f"{_fmt_idle(a)}; val SI-SDRi {a['val_sisdri']:.3f} dB, test {a['test_sisdri']:.3f}; "
+          f"K1 launches {a['k1_launches']}")
+    if a["h2d_bytes_per_step"] != 0:
+        raise RuntimeError(f"a resident step copied {a['h2d_bytes_per_step']} B from the host")
+    ckpt = os.path.join(tmp, "ckpt", "resident_musdb", "relu_epoch_1")
+    model_hp = {k: hp[k] for k in HP_FLAGS + ("num_sources",) if k != "group_size"}
+    a["separate"] = separate_musdb_track(torch, np, tmp, root, ckpt, model_hp,
+                                         cut["track_seconds"], hp["batch_size"], device,
+                                         "resident")
+
+    # (b) the same epoch on host batches, chained and one step a dispatch
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    b = {}
+    try:
+        for tag, chain, inflight in (("chained", 25, 2), ("single", 1, 0)):
+            argv_b, _ = published_run(RESIDENT_HPARAMS, n_train=cut["n_train"],
+                                      n_val=cut["n_val"], n_test=cut["n_val"], n_epochs=1,
+                                      seed=MUSDB_SEED, device_data=False, block_impl=pick,
+                                      chain_steps=chain, max_inflight=inflight,
+                                      checkpoints_path=os.path.join(tmp, f"ckpt_{tag}"),
+                                      **rehearsal)
+            b[tag], _ = _train_run(torch, np, train_main, argv_b + ["--musdb_root", root],
+                                   logs, f"host_{tag}", device, steps, windows)
+            r = b[tag]
+            print(f"resident (b) {tag} (chain_steps {chain}, max_inflight {inflight}): "
+                  f"{r['ms_per_step']:.2f} ms a step, {r['h2d_copies_per_step']:g} "
+                  f"copies and {r['h2d_bytes_per_step']} B from the host a step, idle "
+                  f"{_fmt_idle(r)}; epoch {r['epoch_s']} s (data {r['data_s']}, disp "
+                  f"{r['disp_s']}); val SI-SDRi {r['val_sisdri']:.3f} dB")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    equal = b["chained"]["step_losses"] == b["single"]["step_losses"]
+    print(f"resident (b): chained and single-step losses equal bit for bit: {equal}")
+    if not equal:
+        raise RuntimeError(f"chained {b['chained']['step_losses']} against single "
+                           f"{b['single']['step_losses']}")
+
+    # (c) AUGMENTED: the val set mixed on the card, one resident epoch
+    t0 = time.perf_counter()
+    hier = write_hierarchical_corpus(
+        os.path.join(tmp, "hier"), aug_cut["train_speakers"], aug_cut["val_speakers"],
+        aug_cut["test_speakers"], aug_cut["utts"], aug_cut["val_utts"], fs=FS,
+        seconds=aug_cut["seconds"], seed=0)
+    corpus_s = time.perf_counter() - t0
+    argv_c, hp_c = published_run(
+        RESIDENT_AUG_HPARAMS, n_train=aug_cut["n_train"], n_val=aug_cut["n_eval"],
+        n_test=aug_cut["n_eval"], n_epochs=1,
+        checkpoints_path=os.path.join(tmp, "ckpt_aug"),
+        **{f"{split}_dataset_paths": [os.path.join(hier, split)]
+           for split in ("train", "val", "test")}, **rehearsal)
+    val_set = create_augmented_loader(hp_c, "val")
+    pool_c = resident.hierarchical_pool_from_dataset(val_set, device)
+    mix, src = resident.mix_from_draws(pool_c.arrays, torch.from_numpy(
+        val_set.random_draws.astype(np.float32)), pool_c.t_sel, pool_c.max_abs_snr)
+    mix, src = mix.cpu().numpy(), src.cpu().numpy()
+    gap = 0.0
+    for i in range(len(val_set)):
+        host_mix, host_src = val_set[i]
+        np.testing.assert_allclose(mix[i], host_mix, **HOST_LOADER_TOL, err_msg=f"item {i}")
+        np.testing.assert_allclose(src[i], host_src, **HOST_LOADER_TOL, err_msg=f"item {i}")
+        gap = max(gap, float(np.abs(mix[i] - host_mix).max()),
+                  float(np.abs(src[i] - host_src).max()))
+    steps_c = hp_c["n_train"] // hp_c["batch_size"]
+    c, _ = _train_run(torch, np, train_main, argv_c, logs, "resident_aug", device, steps_c,
+                      windows)
+    c.update(corpus_s=corpus_s, val_items=len(val_set), host_loader_max_abs=gap)
+    print(f"resident (c): {os.path.join(*RESIDENT_AUG_HPARAMS)} on the AUGMENTED cut (corpus "
+          f"{corpus_s:.1f} s): {len(val_set)} val items mixed on the card from their draws, "
+          f"largest gap to the host loader {gap:.2e} (rtol 1e-4, atol 2e-5); a resident epoch "
+          f"of {steps_c} steps {c['ms_per_step']:.2f} ms a step, idle {_fmt_idle(c)}, "
+          f"{c['h2d_bytes_per_step']} B from the host a step; val SI-SDRi "
+          f"{c['val_sisdri']:.3f} dB")
+
+    # (d) the native reader
+    wavs = sorted(os.path.join(d, f) for d, _, files in os.walk(root) for f in files
+                  if f.endswith(".wav"))
+    built = native.available()
+    for w in wavs:  # both timings below read from the page cache
+        data_base.read_wav(w)
+    timing = {}
+    for kind in ("header", "decode"):
+        cache = os.path.join(tmp, f"meta_{kind}")
+        os.makedirs(cache)
+        with contextlib.ExitStack() as stack:
+            if kind == "decode":
+                real = native.get_lib
+                native.get_lib = lambda: None
+                stack.callback(setattr, native, "get_lib", real)
+            t0 = time.perf_counter()
+            lengths = data_base.length_metadata(cache, wavs)
+            timing[kind] = time.perf_counter() - t0
+        timing[f"{kind}_lengths"] = lengths
+    track = os.path.join(root, "train", "track000")
+    want = int(hp["audio_timelength"] * FS)
+    readers = {
+        "native": lambda: [data_base.read_wav_window(os.path.join(track, f"{s}.wav"), 1000, want)
+                           for s in STEMS],
+        "scipy": lambda: [data_base.read_wav(os.path.join(track, f"{s}.wav"))[1][1000:1000 + want]
+                          for s in STEMS],
+    }
+    item = {kind: [] for kind in readers}
+    for rep in range(RESIDENT_IO_REPS + 1):  # in turns; the first of each is a warm-up
+        for kind in (("native", "scipy") if rep % 2 else ("scipy", "native")):
+            t0 = time.perf_counter()
+            item[f"{kind}_stems"] = np.stack(readers[kind]())
+            if rep:
+                item[kind].append(1e3 * (time.perf_counter() - t0))
+    item.update({kind: statistics.median(item[kind]) for kind in readers})
+    same = timing["header_lengths"] == timing["decode_lengths"] and np.allclose(
+        item["native_stems"], item["scipy_stems"], atol=1e-6)
+    d = dict(native_built=built, library=native.library_path().name, wavs=len(wavs),
+             metadata_header_ms=1e3 * timing["header"], metadata_decode_ms=1e3 * timing["decode"],
+             item_native_ms=item["native"], item_scipy_ms=item["scipy"], same=same)
+    print(f"resident (d): native reader built: {built} ({d['library']}); length_metadata of "
+          f"{len(wavs)} wavs of {cut['track_seconds']} s from the page cache: headers "
+          f"{d['metadata_header_ms']:.2f} ms, decoding {d['metadata_decode_ms']:.2f} ms; a "
+          f"4-stem {hp['audio_timelength']} s item (median of {RESIDENT_IO_REPS}, in turns): "
+          f"read_wav_window {d['item_native_ms']:.3f} ms, scipy {d['item_scipy_ms']:.3f} ms; "
+          f"the same lengths and samples: {same}")
+    if not built or not same:
+        raise RuntimeError(f"native reader: {d}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"resident phase: {phase_s:.1f} s")
+    return dict(musdb=a, host=b, augmented=c, native=d, phase_s=phase_s)
 
 
 def _snr_db(torch, ref, est) -> float:
@@ -3017,7 +3416,7 @@ def parallel_phase(torch, np, tmp: str, hp: dict = FLAGSHIP, device: str = "cuda
 
 PHASES = ("k1", "k1_bf16", "float64", "serve", "train", "evaluate", "recipes", "augmented",
           "bf16", "int8", "bench", "causal", "zoo", "zoo_cli", "baselines", "musdb",
-          "longform", "parallel")
+          "longform", "parallel", "resident")
 
 
 def main(argv=None) -> int:
@@ -3220,6 +3619,16 @@ def main(argv=None) -> int:
         return out
 
     phase("parallel", parallel)
+
+    # 21. the published recipes as written: device-resident data, chained
+    # steps, the in-flight bound, block_impl auto and the native reader
+    def resident():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = resident_phase(torch, np, tmp)
+        print(json.dumps({"resident": out}))
+        return out
+
+    phase("resident", resident)
     print(f"phase seconds: {json.dumps(seconds)}")
     if set(args.only) != set(PHASES):
         print(f"chip_smoke: ran {args.only} only; no kernels line and no ok line")
@@ -3281,6 +3690,13 @@ def main(argv=None) -> int:
             r["k1_launches"] for r in res["parallel"]["d"]["ranks"]),
         "launches_parallel_train_cli": sum(
             r["k1_launches"] for r in res["parallel"]["e"]["ranks"]),
+        # the MUSDB recipe as written trains with no K1 (resident, chained
+        # and single-step epochs, and the AUGMENTED resident epoch) and
+        # separates its checkpoint through K1, 16 a bs8 batch
+        "launches_resident_training_paths": sum(
+            r["k1_launches"] for r in (res["resident"]["musdb"], res["resident"]["augmented"],
+                                       *res["resident"]["host"].values())),
+        "launches_resident_separate": res["resident"]["musdb"]["separate"]["launches"],
         "longform_shape": res["longform"]["k1_long"],
         **flagship, "gc_shape": k1["groupcomm"], "u36_shape": k1["u36"],
         "float64_check": res["float64"],

@@ -15,10 +15,11 @@ U16/Bases512 (its hparams) on 4 s @ 8 kHz mixtures, against the reference's
 * int8: bs8 ``models/quantized.py`` with static scales calibrated on a
   held-out batch, gated on its own fidelity >= 25 dB; the headline only if
   gated and faster than the value so far;
-* train: a fixed row, a full ``Trainer`` step (remix, PIT loss, backward,
-  clip, Adam) at bs4 fp32 through the ``xla`` blocks, against the
-  reference's 47.2 audio-s/s. JAX's autotuned train row waits for ROADMAP
-  queue 1, item 11.
+* train: JAX's autotuned row, a full ``Trainer`` step (remix, PIT loss,
+  backward, clip, Adam) in bf16 over bs {4, 8, 16} x the ``xla`` and
+  ``fma`` blocks (``train.autotune.autotune_train_config``), the row that
+  trains the most audio seconds a second, against the reference's 47.2
+  audio-s/s; ``train_config`` reads ``bs{B}_bf16_{impl}_auto``.
 
 Times are CUDA-event medians after warm-up (utils/benchmark.time_call);
 ``mfu_pct`` divides FLOPs counted on the plain forward (the same for every
@@ -60,7 +61,7 @@ def main(argv=None, hp=None, seconds: float = SECONDS, reps: int = REPS) -> int:
     from sudo_rm_rf_tpu_torch import models
     from sudo_rm_rf_tpu_torch.models import quantized as q
     from sudo_rm_rf_tpu_torch.models.fast_inference import cast_model, improved_forward_fast
-    from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig, draw_remix
+    from sudo_rm_rf_tpu_torch.train.autotune import autotune_train_config
     from sudo_rm_rf_tpu_torch.utils.benchmark import (
         backward_flops,
         forward_flops,
@@ -103,22 +104,23 @@ def main(argv=None, hp=None, seconds: float = SECONDS, reps: int = REPS) -> int:
     int8_secs = timed(lambda: q.improved_forward_int8(qp, x8f, scales=scales, **kw))
     int8_au = 8 * seconds / int8_secs
 
-    # train: a full Trainer step, bs4 fp32, xla blocks, on a resident batch
-    tr_model = models.get_model("relu", **hp, block_impl="xla", device=device,
-                                generator=torch.Generator().manual_seed(0))
-    trainer = Trainer(tr_model, TrainerConfig(learning_rate=1e-3))
-    state = trainer.init_state()
-    sources = torch.randn((4, 2, t), generator=torch.Generator().manual_seed(11)).to(device)
-    draw_gen = torch.Generator().manual_seed(12)
-    train_secs = timed(lambda: trainer.train_step(state, sources, draw_remix(draw_gen, 4, 2)))
-    train_au = 4 * seconds / train_secs
+    # train: the autotuned (block form, batch) of a full bf16 Trainer step
+    tuned = autotune_train_config(hp, batch_sizes=(4, 8, 16), compute_dtype="bfloat16",
+                                  model_type="relu", audio_seconds=seconds, fs=SR,
+                                  n_hi=reps, device=device)
+    tuned_row = next(r for r in tuned.rows
+                     if r.impl == tuned.impl and r.batch_size == tuned.batch_size)
+    train_secs = tuned_row.ms_per_step / 1e3
+    train_au = tuned_row.audio_sec_per_sec
+    tr_model = models.get_model("relu", **hp, block_impl=tuned.impl, device=device)
 
     mfu = {
         "bs4_fp32_kernel": mfu_pct(forward_flops(model, 4, t), cons_secs, "float32", device),
         "bs8_bf16_module": mfu_pct(forward_flops(model, 8, t), max_secs, "bfloat16", device),
         "bs8_int8": mfu_pct(forward_flops(model, 8, t), int8_secs, "int8", device),
     }
-    train_mfu = mfu_pct(backward_flops(tr_model, 4, t), train_secs, "float32", device)
+    train_mfu = mfu_pct(backward_flops(tr_model, tuned.batch_size, t), train_secs,
+                        "bfloat16", device)
 
     gated = fidelity >= FIDELITY_GATE_DB and max_au > cons_au
     value = max_au if gated else cons_au
@@ -148,7 +150,7 @@ def main(argv=None, hp=None, seconds: float = SECONDS, reps: int = REPS) -> int:
         "int8_scales": "static_calibrated",
         "mfu_pct": _round(mfu[config]),
         "mfu_pct_conservative": _round(mfu["bs4_fp32_kernel"]),
-        "train_config": "bs4_fp32_xla_fixed (autotuned row: ROADMAP queue 1, item 11)",
+        "train_config": f"bs{tuned.batch_size}_bf16_{tuned.impl}_auto",
         "train_ms_per_step": round(train_secs * 1e3, 2),
         "train_au_s_per_s": round(train_au, 1),
         "train_vs_baseline": round(train_au / TRAIN_BASELINE_AU_S, 3),

@@ -2,12 +2,13 @@
 ``sudo_rm_rf_tpu/cli/args.py``).
 
 The JAX package's flags and defaults, plus ``--device``, mapped onto the
-port's dataclass config tree (``sudo_rm_rf_tpu_torch.config``). Flags of
-features the port does not take yet stay, so that no flag is silently
-dropped: set away from their default they raise ``NotImplementedError``
-(``train.experiment.check_supported``). Two defaults differ:
-``--chain_steps`` is 1 and ``--max_inflight`` 0, because the port takes its
-steps one by one and sets no bound on the work in flight.
+port's dataclass config tree (``sudo_rm_rf_tpu_torch.config``), so a
+published run's ``hparams.json`` trains as written: ``--block_impl auto``
+times the block forms at build, ``--chain_steps`` stacks that many host
+batches into one copy, ``--max_inflight`` bounds the dispatches queued
+ahead of the card and ``--device_data`` keeps the training set on the
+device. Combinations the port cannot train raise in
+``train.experiment.check_supported``.
 """
 
 from __future__ import annotations
@@ -67,23 +68,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grad_accum_steps", type=int, default=1,
                    help="microbatches per optimizer step (large effective "
                         "batches beyond device memory)")
-    p.add_argument("--chain_steps", type=int, default=1,
-                   help="train steps per dispatch; the port takes 1 only "
-                        "(chained steps are ROADMAP queue 1, item 11)")
+    p.add_argument("--chain_steps", type=int, default=25,
+                   help="host batches stacked into one copy to the device and "
+                        "queued together (bit for bit the single steps; a "
+                        "ragged tail runs step by step); 1 disables")
     p.add_argument("--upload_dtype", type=str, default=None,
                    choices=[None, "bfloat16", "float32"],
                    help="host->device dtype of the train batches: cast on "
                         "the host, back to fp32 on the device (bfloat16 "
                         "halves the bytes copied)")
-    p.add_argument("--max_inflight", type=int, default=0,
-                   help="max train dispatches in flight; the port takes 0 "
-                        "only, no bound (ROADMAP queue 1, item 11)")
+    p.add_argument("--max_inflight", type=int, default=2,
+                   help="max train dispatches queued ahead of the card before "
+                        "the host waits on the oldest (bounds the queued work "
+                        "and the pinned host batches); 0 = unbounded")
     p.add_argument("--early_stop_patience", type=int, default=0,
                    help="stop after N epochs without a new best primary "
                         "val metric (0 = run all epochs)")
     p.add_argument("--device_data", action="store_true",
-                   help="device-resident training data (not ported: "
-                        "ROADMAP queue 1, item 11)")
+                   help="decode the training set once into a pool on the "
+                        "device and draw every batch there: no host-to-device "
+                        "copy a step")
     p.add_argument("-fs", type=int, default=8000)
     p.add_argument("--seed", type=int, default=0)
     # bookkeeping
@@ -113,8 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--att_dropout", type=float, default=0.1)
     p.add_argument("--block_impl", type=str, default="fma",
                    choices=["xla", "fma", "kernel", "auto"],
-                   help="U-ConvBlock form; 'kernel' is forward-only and "
-                        "'auto' is not ported (ROADMAP queue 1, item 11)")
+                   help="U-ConvBlock form; 'kernel' is forward-only, 'auto' "
+                        "times xla and fma through the train step at build and "
+                        "trains with the faster")
     p.add_argument("--remat_blocks", action="store_true",
                    help="recompute block activations in the backward (model "
                         "types relu and groupcomm_v2): less memory for about "

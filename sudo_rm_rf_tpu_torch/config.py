@@ -168,14 +168,19 @@ class TrainConfig:
     # warmup_steps, cosine decay to n_epochs x steps_per_epoch)
     optimizer: str = "adam"
     grad_accum_steps: int = 1
-    # train steps per dispatch; the port takes them one by one (1)
+    # train steps a host batch copy: K batches stacked into one copy and
+    # queued together (Trainer.train_steps), bit for bit the K single steps
     chain_steps: int = 1
     # fwd/bwd compute dtype over fp32 master params and loss, e.g. 'bfloat16'
     compute_dtype: Optional[str] = None
-    upload_dtype: Optional[str] = None  # waits
-    # dispatches in flight before the host waits; the port sets no bound (0)
-    max_inflight: int = 0
-    device_data: bool = False  # waits
+    # host-to-device dtype of the train batches (cast back on the device)
+    upload_dtype: Optional[str] = None
+    # train dispatches queued ahead of the card before the host waits on the
+    # oldest (0 = no bound)
+    max_inflight: int = 2
+    # the training set decoded once into a pool on the device, every batch
+    # drawn there (train/resident.py)
+    device_data: bool = False
     # stop after this many epochs without a new best on the primary val
     # metric (0 = train all n_epochs)
     early_stop_patience: int = 0

@@ -5,7 +5,9 @@ Validated kwargs, wav reading, per-sample standardization, fixed-length
 zero-pad/crop and the wav-length metadata cache. The cache is the JAX
 package's file (``metadata``, a pickled list of (basename, n_samples) next to
 the data), so both packages keep the same files and draw the same crops.
-Imports numpy and scipy only.
+Lengths come from the wav headers and windows are decoded alone through the
+native reader (``native/``) where it builds, else through scipy. Imports
+numpy and scipy only.
 """
 
 from __future__ import annotations
@@ -68,6 +70,23 @@ def read_wav(path: str) -> Tuple[int, np.ndarray]:
     return sr, data
 
 
+def read_wav_window(path: str, start: int, want: int) -> np.ndarray:
+    """``want`` mono float32 samples from ``start`` (zero-padded past the
+    end): the native reader decodes only the window; without it scipy
+    decodes the whole file (``native.read_batch``)."""
+    from sudo_rm_rf_tpu_torch import native
+
+    return native.read_batch([path], want, starts=[start])[0]
+
+
+def wav_frames(path: str) -> int:
+    """Number of frames, from the header alone where the native reader
+    builds (``native.wav_info``)."""
+    from sudo_rm_rf_tpu_torch import native
+
+    return native.wav_info(path)[0]
+
+
 def normalize_wav(wav: np.ndarray, eps: float = 1e-8, std=None) -> np.ndarray:
     """(x - mean) / (std + eps); std defaults to the wav's own (ddof=1, as
     torch.std)."""
@@ -93,18 +112,21 @@ def length_metadata(
     expected_sr: Optional[int] = None,
 ) -> List[Tuple[str, int]]:
     """(basename, n_samples) for every wav, cached in a pickle next to the
-    data. The cache is keyed only by existence."""
+    data. The cache is keyed only by existence. The native reader probes
+    the headers only; without it every file is decoded."""
     cache_path = os.path.join(dirpath, cache_name)
     if os.path.lexists(cache_path):
         with open(cache_path, "rb") as fh:
             return pickle.load(fh)
 
+    from sudo_rm_rf_tpu_torch import native
+
     info = []
     for p in sorted(wav_paths):
-        sr, wav = read_wav(p)
+        n, sr, _ = native.wav_info(p)
         if expected_sr is not None and sr != expected_sr:
             raise DatasetConfigError(f"{p}: sample rate {sr} != expected {expected_sr}")
-        info.append((os.path.basename(p), wav.shape[0]))
+        info.append((os.path.basename(p), n))
     try:
         with open(cache_path, "wb") as fh:
             pickle.dump(info, fh)

@@ -50,11 +50,16 @@ def run_blocks(blocks: nn.Sequential, x, remat: bool = False):
     """``blocks(x)``; with ``remat`` each block under
     ``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes
     its activations instead of keeping them, as JAX's ``nn.remat`` does.
-    Without autograd there is nothing to keep, and the blocks run plainly."""
+    The recompute takes each block's params as the forward saw them (under
+    ``torch.func.functional_call``, e.g. the trainer's bf16 casts, not the
+    module's own fp32 params). Without autograd there is nothing to keep,
+    and the blocks run plainly."""
     if not remat or not torch.is_grad_enabled():
         return blocks(x)
     for block in blocks:
-        x = checkpoint(block, x, use_reentrant=False)
+        params = dict(block.named_parameters())
+        x = checkpoint(lambda x_, p, b=block: torch.func.functional_call(b, p, (x_,)), x,
+                       params, use_reentrant=False)
     return x
 
 

@@ -2,7 +2,9 @@
 
 ``train.experiment.run_experiment`` (the epoch loop behind
 ``sudo-torch-train``) is imported from its module, since it pulls in the data
-loaders and the checkpoint manager.
+loaders and the checkpoint manager; so are ``train.resident`` (the
+device-resident pools and epoch) and ``train.autotune`` (``block_impl
+'auto'``).
 """
 
 from sudo_rm_rf_tpu_torch.train.augment import (

@@ -5,6 +5,8 @@ The JAX package draws its permutations from a threefry key inside the jitted
 step; that stream cannot be reproduced in torch. So each remix here takes its
 draws explicitly, and :func:`draw_remix` makes them from a
 ``torch.Generator``: the same draws give the same remix in both packages.
+The draws are made on the generator's device, so a CUDA generator draws
+them on the card without a copy from the host.
 """
 
 from __future__ import annotations
@@ -30,15 +32,18 @@ def _energy_match(new: torch.Tensor, energy: torch.Tensor) -> torch.Tensor:
 def draw_remix(generator: torch.Generator, b: int, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The draws of one remix: a permutation of the ``s`` source slots and
     one permutation of the ``b`` batch rows per source, (s,) and (s, b)."""
-    slot_perm = torch.randperm(s, generator=generator)
-    batch_perms = torch.stack([torch.randperm(b, generator=generator) for _ in range(s)])
+    dev = generator.device
+    slot_perm = torch.randperm(s, generator=generator, device=dev)
+    batch_perms = torch.stack([torch.randperm(b, generator=generator, device=dev)
+                               for _ in range(s)])
     return slot_perm, batch_perms
 
 
 def draw_pair_remix(generator: torch.Generator, b: int, s: int) -> torch.Tensor:
     """The draws of one pair remix: a permutation of the ``b`` batch rows
     per source slot, (s, b)."""
-    return torch.stack([torch.randperm(b, generator=generator) for _ in range(s)])
+    return torch.stack([torch.randperm(b, generator=generator, device=generator.device)
+                        for _ in range(s)])
 
 
 def online_remix_sources(clean_wavs: torch.Tensor, slot_perm: torch.Tensor,
@@ -84,7 +89,7 @@ def draw_fuss(generator: torch.Generator, b: int, s: int):
     """The draws of one FUSS augmentation: gains (b, s, 1) in [0.5, 1.5), a
     permutation of the ``s`` source slots (s,) and one permutation of the
     ``b`` batch rows per slot (s, b)."""
-    gains = torch.rand(b, s, 1, generator=generator) + 0.5
+    gains = torch.rand(b, s, 1, generator=generator, device=generator.device) + 0.5
     slot_perm, batch_perms = draw_remix(generator, b, s)
     return gains, slot_perm, batch_perms
 

@@ -21,6 +21,9 @@ FLOPs, model-FLOPs utilization and the device allocator's peaks.
   (depthwise) convolution as a dense one (1,279.6 GFLOP for U16/512 at bs4,
   4 s, against 120.8 for its forward).
 * Peaks: :data:`H100_PEAKS`.
+* Idle share: a window's host wall time to a synchronize against the
+  device's busy time in a ``torch.profiler`` trace of it
+  (:func:`device_busy`: the union of its kernel and copy intervals).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 import copy
 import functools
 import statistics
+import subprocess
 import time
 from typing import Callable, Dict, Optional
 
@@ -187,6 +191,35 @@ def time_call(fn: Callable, device, n: int = 21, warmup: int = 3) -> float:
             fn()
             times.append(time.perf_counter() - t0)
     return statistics.median(times)
+
+
+def card_label(device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them (a
+    measurement's provenance), or a label saying the numbers are the CPU's."""
+    if torch.device(device).type != "cuda":
+        return "cpu (not a device measurement)"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def device_busy(prof) -> tuple:
+    """(ms, launches) of a finished ``torch.profiler.profile``'s device
+    activity: the union of its kernel and copy intervals, read from the
+    trace's raw events."""
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    return busy / 1e6, len(spans)
 
 
 def benchmark_model(

@@ -45,6 +45,38 @@ def _train(case, mesh, name, steps, cfg, batch, local_rows=False):
                 state=state, trainer=trainer)
 
 
+def fed_steps(case, mesh, how):
+    """Two steps of a fresh model holding the case's params, fed as a chain
+    (``Trainer.train_steps`` over two stacked global batches), as the same
+    two single steps, or as a resident epoch (an example bank of the case's
+    rows, drawn from a seeded generator): the losses and the whole params.
+    ``mesh`` None is the one process."""
+    import torch
+
+    from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig
+    from sudo_rm_rf_tpu_torch.train.resident import ResidentData, make_examples_sampler
+
+    if mesh is not None and not mesh.member:
+        return None
+    model = models.get_model("relu", **case["hp"])
+    model.load_state_dict(case["sd"])
+    trainer = Trainer(model, TrainerConfig(), prepare_batch=_prepare, mesh=mesh)
+    state = trainer.init_state()
+    if how == "chain":
+        state, metrics = trainer.train_steps(state, case["chain_src"], [None, None])
+        losses = metrics["loss"]
+    elif how == "steps":
+        losses = torch.stack([trainer.train_step(state, batch, None)[1]["loss"]
+                              for batch in case["chain_src"]])
+    else:
+        pool = case["pool_src"]
+        data = ResidentData(trainer, make_examples_sampler(pool.shape[0], 4), pool, 2,
+                            lambda generator, batch: None)
+        state, losses = data.run_epoch(state, torch.Generator().manual_seed(3))
+    return dict(losses=losses.tolist(), params=trainer.whole_state_dict())
+
+
 def run(rank: int, world: int, store_path: str, case_path: str, out_dir: str) -> None:
     import torch
     import torch.distributed as dist
@@ -72,6 +104,9 @@ def run(rank: int, world: int, store_path: str, case_path: str, out_dir: str) ->
         dp2 = make_mesh(2, 1, ranks=[0, 1])
         local = shard_batch(dp2, case["dist_src"]) if dp2.member else None
         got["dp2_local"] = strip(_train(case, dp2, "dist", 1, {}, local, local_rows=True))
+        # a 2-step chain and a 2-step resident epoch over DP 2
+        for how in ("chain", "steps", "resident"):
+            got[f"dp2_{how}"] = fed_steps(case, dp2, how)
         # the clamp on the global mean, and gradient accumulation
         for name in ("clamp_inside", "clamp_saturated"):
             got[name] = strip(_train(case, dp2, "clamp", 1, dict(loss_clamp=case[name]),

@@ -175,6 +175,8 @@ def run(tmp_path_factory):
         dist_sd=sd, clamp_src=torch.from_numpy(clamp_src),
         clamp_inside=(abs(g) + hi) / 2, clamp_saturated=(lo + abs(g)) / 2,
         tp_src=torch.from_numpy(_sources(8, 1024, 7)),
+        chain_src=torch.from_numpy(np.stack([_sources(4, 1024, 21), _sources(4, 1024, 22)])),
+        pool_src=torch.from_numpy(_sources(8, 1024, 23)),
         ctp_hp=dict(block_impl="fma", tp=True), ctp_sd=ctp_sd,
         ctp_src=torch.from_numpy(_sources(8, 1024, 17)),
         fast_hp=FAST_HP, fast_sd=fast.state_dict(),
@@ -203,6 +205,8 @@ def run(tmp_path_factory):
             "accum2": _one_process(sd, 2, dict(grad_accum_steps=2), src["dp_src"]),
             "tp_storage": _one_process(sd, 2, {}, src["tp_src"]),
             "tp_compute": _one_process(ctp_sd, 2, {}, src["ctp_src"], block_impl="fma"),
+            **{f"dp2_{how}": _torch_parallel_worker.fed_steps(case, None, how)
+               for how in ("chain", "resident")},
         }
         tp_mesh = jax_mesh(n_model=4)
         jx = {
@@ -268,6 +272,30 @@ def test_step_matches_one_process_and_jax(run, name):
             for k, v in ranks[0]["per_step"][step].items():
                 assert torch.equal(got["per_step"][step][k], v), (step, k)
     assert all(r[name] is None for i, r in enumerate(run["ranks"]) if i not in TRAIN_CASES[name])
+
+
+@pytest.mark.parametrize("how", ["chain", "resident"])
+def test_dp_chain_and_resident_epoch_match_one_process(run, how):
+    """Two chained steps and a two-step resident epoch over DP 2: each
+    step's loss against the one-process run's (JAX's loss bound), the params
+    within JAX's bounds, bit-identical on both ranks; on each rank the chain
+    is its two single steps bit for bit."""
+    one = run["one"][f"dp2_{how}"]
+    ranks = [run["ranks"][r][f"dp2_{how}"] for r in range(2)]
+    assert len(one["losses"]) == 2
+    for got in ranks:
+        np.testing.assert_allclose(got["losses"], one["losses"], rtol=0, atol=LOSS_ABS)
+        for k, want in one["params"].items():
+            np.testing.assert_allclose(got["params"][k].numpy(), want.numpy(), **PARAMS,
+                                       err_msg=k)
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    assert all(torch.equal(ranks[1]["params"][k], v) for k, v in ranks[0]["params"].items())
+    assert all(r[f"dp2_{how}"] is None for r in run["ranks"][2:])
+    if how == "chain":
+        for r in range(2):
+            steps = run["ranks"][r]["dp2_steps"]
+            assert ranks[r]["losses"] == steps["losses"]
+            assert all(torch.equal(steps["params"][k], v) for k, v in ranks[r]["params"].items())
 
 
 def test_clamp_cases_straddle_the_clamp(run):

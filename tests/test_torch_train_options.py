@@ -1,6 +1,7 @@
 """Training options of the port on the CPU: ``remat_blocks`` (each block
 under ``torch.utils.checkpoint``) gives the grads of the plain forward for
-the Improved and GroupComm models in both trainable block forms, and the new
+the Improved and GroupComm models in both trainable block forms, in fp32 and
+under the trainer's bf16 compute dtype, and the new
 model types train through ``sudo-torch-train``. Grads with and without
 remat: equal within rtol = atol = 1e-6 (the same ops recomputed).
 ``upload_dtype``: the host cast equals ml_dtypes' bf16 bit for bit, and one
@@ -46,6 +47,29 @@ def test_remat_blocks_grads_equal_the_plain_ones(model_type, block_impl, monkeyp
     for name in plain:
         np.testing.assert_allclose(remat[name].numpy(), plain[name].numpy(), rtol=1e-6,
                                    atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("block_impl", ["fma", "xla"])
+@pytest.mark.parametrize("model_type", sorted(TOY))
+def test_remat_blocks_under_a_bf16_compute_dtype(model_type, block_impl):
+    """The trainer's bf16 step casts the params through
+    ``torch.func.functional_call``: the recompute takes those casts, so the
+    remat step's loss and grads equal the plain step's."""
+    from sudo_rm_rf_tpu_torch.train import Trainer, TrainerConfig, draw_remix
+
+    x = torch.randn(2, 2, 643, generator=torch.Generator().manual_seed(3))
+    got = []
+    for remat in (False, True):
+        model = models.get_model(model_type, **TOY[model_type], block_impl=block_impl,
+                                 remat_blocks=remat, generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model, TrainerConfig(compute_dtype="bfloat16", loss_clamp=0.0))
+        loss = trainer.compute_gradients(trainer.init_state(), x,
+                                         draw_remix(torch.Generator().manual_seed(4), 2, 2))
+        got.append((float(loss), {n: p.grad for n, p in model.named_parameters()}))
+    assert got[0][0] == got[1][0]
+    for name, g in got[0][1].items():
+        np.testing.assert_allclose(got[1][1][name].numpy(), g.numpy(), rtol=1e-6, atol=1e-6,
+                                   err_msg=name)
 
 
 def test_remat_blocks_forward_without_autograd_runs_plainly():
