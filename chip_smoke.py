@@ -14,8 +14,13 @@
    depth 5), at the U36 WHAMR! 16 kHz block (Co=Ci=512, T=6400, depth 5;
    B=1, 4) and at the U8/256 block of the convergence check's validation
    (B=4, Co=128, Ci=256, T=1600, depth 5), within rtol=atol=1e-4; two calls
-   on one input must be bit-identical. At the flagship and U36 shapes, time
-   the kernel, ``uconv_block_fma`` and ``uconv_block_reference`` (CUDA
+   on one input must be bit-identical. At the u36_wide block (Co=512,
+   Ci=2048, T=3200, depth 5; B=1, 4), with each pyramid, against
+   ``uconv_block_levelwise`` with the same pyramid: fp32 within rtol = atol
+   = 1e-4, bf16 outside it only by the bf16 pyramid's rounding flips (10.),
+   two calls bit-identical; its time, the plain version's, its bound,
+   yardstick and (B=4) parts. At the flagship and U36 shapes, time the
+   kernel, ``uconv_block_fma`` and ``uconv_block_reference`` (CUDA
    events, median of 25 after warm-up). At B=4 of both and at the GroupComm shape, also: the
    device time of each of K1's parts (``torch.profiler``), K1's bound, and
    the ``torch.matmul`` time of the
@@ -44,7 +49,7 @@
    The trained weights then go through ``sudo-torch-separate`` (K1 launches
    counted). One train step of the same model on the card and on the CPU,
    from the same weights, batch and draws: loss and grad norm within 1e-3
-   relative. The median train-step time (CUDA events, 10 steps after 3
+   relative. The median train-step time (CUDA events, 3 steps after 3
    warm-up) and peak memory of the fma and xla blocks, each in fp32 and
    bf16, with each step's device busy time, idle share, device launches and
    top kernels (``torch.profiler``).
@@ -88,7 +93,8 @@
    dB gate, times, and ``aten::_int_mm`` once a quantized site on the card.
 12. ``sudo-torch-bench`` at the zoo's U16/512, GroupComm and U36 rows (bs1
    and bs4, fp32 and bf16) and one backward row, K1 counted; then
-   ``python -m sudo_rm_rf_tpu_torch.bench``, its line and gates.
+   ``python -m sudo_rm_rf_tpu_torch.bench``, its line and gates (3 timed
+   calls a row).
 13. The AUGMENTED loop at the widths of
    ``docs/runs/improved_u16_synth/hparams.json`` (U16/512, out 256, bs8, 4 s
    at 8 kHz, the xla blocks in bf16): a hierarchical corpus (cut to 12 x 8
@@ -190,15 +196,29 @@
    epoch's ms a step and idle share. (d) The native wav reader built; the
    header-only ``length_metadata`` of the MUSDB corpus against the decoding
    one, a 4-stem ``read_wav_window`` item against scipy's.
-22. Print JSON lines of the serving, training, evaluation, recipe,
+22. The port's tools (``tools``), each through its ``main(argv)`` with
+   K1's counts at 0 before it: ``scripts/torch_bench_batch_sweep.py`` at
+   bs 8 and 32 over its six paths, ``torch_bench_gc_serving.py
+   --families_sweep`` at bs4, ``torch_bench_quantized.py`` on
+   ``u36_2048`` and ``u36_wide`` at bs4 (``--attribute`` on the wide one),
+   ``torch_roofline_bound.py --measure``, ``torch_longform_run.py`` on 2
+   minutes of the resident phase's AUGMENTED test split from its
+   checkpoint, and ``examples/torch_quickstart.py``: every promised key
+   present and finite, K1 once a block a forward on each ``kernel`` row,
+   ``kernel`` rows >= 80 dB from the plain or ``fma`` forward, bf16 rows
+   >= 35 dB from fp32, the gated GroupComm int8 recipe (where one passes)
+   >= 25 dB, each roofline time above its floor.
+23. Print JSON lines of the serving, training, evaluation, recipe,
    augmented, reduced-precision, bench, causal, zoo, baseline, MUSDB,
-   long-form, parallel and resident results, each phase's seconds, and one line of
+   long-form, parallel, resident and tools results, each phase's seconds,
+   and one line of
    kernel results (K1 with an fp32 and with a bf16 pyramid; the first with
    the AUGMENTED evaluation's, the MUSDB separation's, the long-form passes'
    and the DP overlap-add's launches, K1's time at the long-form block
    shape, and its 0 launches on the causal, v1, attentive, baseline, MUSDB,
    DP and TP training paths and the n-shard bodies, and the resident
-   phase's training paths and separation), then
+   phase's training paths and separation, each tool's launches and K1 at
+   the u36_wide block), then
    ``{"ok": true, "device": ...}`` as the last line. Any failure raises and
    exits non-zero. ``--only PHASE ...`` runs some phases (a rehearsal on
    the card, without the kernels and ok lines).
@@ -243,6 +263,11 @@ U36 = dict(out_channels=512, in_channels=512, num_blocks=36, upsampling_depth=5,
 FS16 = 16000
 U36_BLOCK = (BATCH, 512, 512, 6400, 5)
 CONVERGENCE_BLOCK = (BATCH, 128, 256, 1600, 5)
+# the u36_wide configuration of scripts/bench_quantized.py (out 512, in 2048,
+# 36 blocks, 2048 bases) at 8 kHz, 4 s: its blocks run at (B, 512, 2048,
+# 3200, 5), checked at B=1 and 4
+U36_WIDE_BLOCK = (512, 2048, 3200, 5)
+WIDE_BATCHES = (1, BATCH)
 BLOCK_SHAPES = [(1, 256, 512, 3200, 5), (4, 256, 512, 3200, 5),
                 (8, 256, 512, 3200, 5), (2, 20, 36, 648, 4), (2, 70, 100, 334, 2),
                 GC_BLOCK, (1, 512, 512, 6400, 5), U36_BLOCK, CONVERGENCE_BLOCK]
@@ -265,17 +290,14 @@ RECIPE_RUNS = {
                  fs=16000, loss_clamp=0.0, mixture_consistency="uniform",
                  argv=["--max_num_sources", "4"]),
 }
-RECIPE_BATCH, RECIPE_STEP_REPS = 8, 5
+RECIPE_BATCH, RECIPE_STEP_REPS = 8, 3
 WAV_SECONDS = (3.0, 10.0, 25.0)
 MIN_FIDELITY_DB = 80.0
-# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
-PEAK_TF32 = 495e12
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
 K1_PARTS = ("split", "gemm", "ladder", "fold", "upsum")
 TRAIN_FILES, VAL_FILES = 16, 8
 TRAIN_EPOCHS = 2
-STEP_WARMUP, STEP_REPS = 3, 10
+# the timed train steps of a configuration (10 before the tools phase was added)
+STEP_WARMUP, STEP_REPS = 3, 3
 MAX_CARD_CPU_REL = 1e-3
 HP_FLAGS = ("out_channels", "in_channels", "num_blocks", "upsampling_depth",
             "enc_kernel_size", "enc_num_basis", "group_size")
@@ -345,6 +367,10 @@ RESIDENT_IO_REPS = 20
 # timed; an int8 output under INT8_MIN_DB is a fault, not a miss of the gate
 BF16_GATE_DB, INT8_GATE_DB, INT8_MIN_DB = 35.0, 25.0, 15.0
 SERVE_BATCHES = (BATCH, 8)
+# the headline bench's timed calls a row (its default, 21, took 56 s of the
+# bench phase, most in its autotuned train rows; chip_smoke checks its line
+# and gates, the bench itself measures)
+HEADLINE_REPS = 3
 # the rest of the SuDoRM-RF family, at full width (8 kHz, 4 s, bs4): causal
 # v3 at the JAX class defaults (sudo_rm_rf_tpu/models/causal_sudormrf.py:
 # 141-150), its skip-init gains set to CAUSAL_GAIN (at 0, as drawn, every
@@ -369,7 +395,7 @@ STREAM_HOP, STREAM_CONTEXT, STREAM_COUNTS = 160, 3200, (1, 16)
 # samples + the encoder's 200 = 24,200 samples), over a 4 s stream compared
 # past that head
 STREAM_CHECK_CONTEXT = 25600
-ZOO_STEP_REPS = 5
+ZOO_STEP_REPS = 3
 # the baselines at their class defaults, the published configurations
 # (ConvTasNet 5.05 M params, DPRNN 2.63 M, Demucs 415.09 M, TDCN 8.63 M,
 # ResidualTN 9.42 M, SepFormer 25.68 M), and the JAX zoo's baseline rows
@@ -413,29 +439,13 @@ def time_ms(torch, fn, warmup: int = 3, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def k1_bound(b, co, ci, t, depth) -> dict:
-    """Least time (ms) the card could take for one K1 call: the larger of its
-    bytes (x in, out, the params, each once) over the memory rate and its
-    operations over the peak of their type. The two GEMMs do 2 * B * Ci * Co
-    * T flops each; K1 takes them in 3xTF32, three TF32 passes on the tensor
-    cores, and ``bound_fp32_simt_ms`` is the same work on the fp32 pipes. The
-    ladder (5 multiply-adds, the fold and PReLU: ~12 flops an output) and the
-    upsample-sum (one multiply-add a level) are fp32."""
-    gemm = 2 * 2 * b * ci * co * t
-    other = b * ci * (12 * sum(t >> k for k in range(depth)) + 2 * depth * t)
-    params = 2 * ci * co + ci * (8 * depth + 5) + co
-    mem = 4 * (2 * b * co * t + params) / PEAK_BYTES
-    ops = 3 * gemm / PEAK_TF32 + other / PEAK_FP32
-    return dict(bound_ms=1e3 * max(ops, mem), bound_by="operations" if ops >= mem else "bytes",
-                bound_fp32_simt_ms=1e3 * max((gemm + other) / PEAK_FP32, mem))
-
-
 def device_ms_by_kernel(torch, fn, calls: int, by_part: bool = True,
                         launches: dict | None = None) -> dict:
     """Device time per call of fn, summed by K1 part (``<part>_kernel``) and
-    "other", or by kernel name, from ``torch.profiler``; empty if the trace
-    holds no device time. ``launches``, if given, gets the device launches
-    per call under the same names."""
+    "other", or by kernel name, from the raw device events of a
+    ``torch.profiler`` trace (``key_averages`` took 7-20 s a call over a
+    train step); empty if the trace holds no device time. ``launches``, if
+    given, gets the device launches per call under the same names."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -445,16 +455,14 @@ def device_ms_by_kernel(torch, fn, calls: int, by_part: bool = True,
             fn()
         torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            m = re.search(r"(%s)_kernel" % "|".join(K1_PARTS), e.key)
-            name = (m.group(1) if m else "other") if by_part else e.key
-            out[name] = out.get(name, 0.0) + us / 1e3 / calls
-            if launches is not None:
-                launches[name] = launches.get(name, 0.0) + e.count / calls
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or e.duration_ns() <= 0:
+            continue
+        m = re.search(r"(%s)_kernel" % "|".join(K1_PARTS), e.name())
+        name = (m.group(1) if m else "other") if by_part else e.name()
+        out[name] = out.get(name, 0.0) + e.duration_ns() / 1e6 / calls
+        if launches is not None:
+            launches[name] = launches.get(name, 0.0) + 1 / calls
     return out
 
 
@@ -562,6 +570,8 @@ def k1_phase(torch, U, lib, hmma) -> dict:
     """Phase 3: K1 against its plain version at every shape; the profiled
     rows at the flagship B=4, the GroupComm folded shape and the U36 WHAMR!
     block at B=4."""
+    from sudo_rm_rf_tpu_torch.utils.benchmark import k1_bound
+
     rows = {}
     for b, co, ci, t, depth in BLOCK_SHAPES:
         p = block_params(torch, depth, ci, co, seed=0)
@@ -1942,7 +1952,9 @@ def resident_phase(torch, np, tmp: str, device: str = "cuda", cut: dict = RESIDE
     steps_c = hp_c["n_train"] // hp_c["batch_size"]
     c, _ = _train_run(torch, np, train_main, argv_c, logs, "resident_aug", device, steps_c,
                       windows)
-    c.update(corpus_s=corpus_s, val_items=len(val_set), host_loader_max_abs=gap)
+    c.update(corpus_s=corpus_s, val_items=len(val_set), host_loader_max_abs=gap,
+             checkpoint=os.path.join(tmp, "ckpt_aug", "resident_aug", "relu_epoch_1"),
+             test_corpus=os.path.join(hier, "test"), hp={k: hp_c[k] for k in HP_FLAGS})
     print(f"resident (c): {os.path.join(*RESIDENT_AUG_HPARAMS)} on the AUGMENTED cut (corpus "
           f"{corpus_s:.1f} s): {len(val_set)} val items mixed on the card from their draws, "
           f"largest gap to the host loader {gap:.2e} (rtol 1e-4, atol 2e-5); a resident epoch "
@@ -2014,7 +2026,9 @@ def upsum_bound_ms(b, ci, t, depth, level_bytes: int) -> float:
     """Least time (ms) of K1's upsample-sum: its levels read once at
     ``level_bytes`` a value and its fp32 output written once."""
     levels = b * ci * sum(t >> k for k in range(depth))
-    return 1e3 * (level_bytes * levels + 4 * b * ci * t) / PEAK_BYTES
+    from sudo_rm_rf_tpu_torch.utils.benchmark import H100_BYTES_PER_S
+
+    return 1e3 * (level_bytes * levels + 4 * b * ci * t) / H100_BYTES_PER_S
 
 
 def k1_bf16_phase(torch, U) -> dict:
@@ -2023,6 +2037,8 @@ def k1_bf16_phase(torch, U) -> dict:
     with the same pyramid, on the card) on the block's change (out - x), two
     calls bit-identical, its distance to the fp32 pyramid's output, and its
     time and parts beside the fp32 pyramid's."""
+    from sudo_rm_rf_tpu_torch.utils.benchmark import k1_bound
+
     bf = torch.bfloat16
     rows = {}
     for b, co, ci, t, depth in PYRAMID_SHAPES:
@@ -2271,7 +2287,8 @@ def bench_phase(torch) -> dict:
         raise RuntimeError("the bench's serving rows did not run K1")
     U.fused_uconv_block.launches = 0
     t0 = time.perf_counter()
-    line = json.loads(run_cli(headline.main, []).strip().splitlines()[-1])
+    line = json.loads(run_cli(lambda argv: headline.main(argv, reps=HEADLINE_REPS), [])
+                      .strip().splitlines()[-1])
     print(f"headline: {line['value']} {line['unit']} ({line['config']}), bf16 gate "
           f"{'passed' if line['bf16_gate_passed'] else 'failed'} at "
           f"{line['bf16_fidelity_db']} dB, int8 gate "
@@ -2303,7 +2320,7 @@ def zoo_model(torch, model_type: str, hp: dict, weights: dict, device: str, **kw
     return model
 
 
-def profiled_ms(torch, fn, label: str, reps: int = 10, calls: int = 3) -> dict:
+def profiled_ms(torch, fn, label: str, reps: int = 5, calls: int = 3) -> dict:
     """Median ms of fn (CUDA events), the device's busy time, idle share and
     launches a call (``torch.profiler``), and the top kernels."""
     ms = time_ms(torch, fn, warmup=2, reps=reps)
@@ -2716,11 +2733,92 @@ def baselines_phase(torch, np, tmp: str, device: str = "cuda", zoo: dict = BASEL
     return res
 
 
+def k1_wide_check(torch, U) -> dict:
+    """K1 at the u36_wide block (Co=512, Ci=2048, T=3200, depth 5) at B=1 and
+    4, with each pyramid, against ``uconv_block_levelwise`` with the same
+    pyramid on the card, and two calls bit-identical. fp32: within rtol =
+    atol = 1e-4. bf16: the outputs outside 1e-4 are counted; where there are
+    any, they must be bf16 rounding flips under the bf16 pyramid's rule
+    (PYRAMID_*). Each row: the time (CUDA events) and the plain version's, K1's bound, the
+    ``torch.matmul`` yardstick of its two products and, at B=4, its parts."""
+    from sudo_rm_rf_tpu_torch.utils.benchmark import k1_bound
+
+    rows = {}
+    for b in WIDE_BATCHES:
+        co, ci, t, depth = U36_WIDE_BLOCK
+        p = block_params(torch, depth, ci, co, seed=0)
+        x = torch.randn(b, co, t, generator=torch.Generator().manual_seed(1)).cuda()
+        acc_in = torch.randn(b, ci, t, generator=torch.Generator().manual_seed(2)).cuda()
+        lib_ms = time_ms(torch, lambda: (torch.matmul(p["proj_w"], x),
+                                         torch.matmul(p["res_w"], acc_in)), reps=10)
+        bound = k1_bound(b, co, ci, t, depth)
+        for pyramid, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            label = f"K1 u36_wide {pyramid} pyramid {(b, co, ci, t, depth)}"
+            got = U.fused_uconv_block(x, p, depth, dt)
+            torch.cuda.synchronize()
+            want = U.uconv_block_levelwise(x, p, depth, dt)
+            diff = (got - want).abs()
+            err = diff.max().item()
+            outside = int((diff > 1e-4 + 1e-4 * want.abs()).sum())
+            snr = _snr_db(torch, want - x, got - x)
+            past = int((diff > PYRAMID_MAX_ABS).sum())
+            plain = ""
+            if pyramid == "fp32":
+                ok = outside == 0
+            else:
+                ok = outside == 0 or (snr >= PYRAMID_MIN_DB and err <= PYRAMID_FLIP_MAX
+                                      and past <= PYRAMID_FLIP_SHARE * diff.numel())
+                # what bf16 rounding flips alone give: the plain version in
+                # fp32 against itself in float64, with the same bf16 store
+                want64 = U.uconv_block_levelwise(
+                    x.double(), {k: v.double() for k, v in p.items()}, depth, dt)
+                gap = (want.double() - want64).abs()
+                plain_outside = int((gap > 1e-4 + 1e-4 * want64.abs()).sum())
+                plain = (f"; the plain version in fp32 against itself in float64: max "
+                         f"{gap.max().item():.3e}, {plain_outside} outside 1e-4")
+                del want64, gap
+            del want
+            print(f"{label}: vs uconv_block_levelwise max_abs_err {err:.3e}, {outside} of "
+                  f"{diff.numel()} outputs outside rtol = atol = 1e-4, {snr:.2f} dB on "
+                  f"(out - x)" + plain)
+            if not ok:
+                raise RuntimeError(f"{label}: {outside} outputs outside 1e-4, max |delta| "
+                                   f"{err:.3e}, {snr:.2f} dB")
+            if not torch.equal(got, U.fused_uconv_block(x, p, depth, dt)):
+                raise RuntimeError(f"{label}: two calls differ")
+            del got, diff
+            call = lambda dt=dt: U.fused_uconv_block(x, p, depth, dt)
+            ms = time_ms(torch, call, reps=10)
+            plain_ms = time_ms(torch, lambda dt=dt: U.uconv_block_levelwise(x, p, depth, dt),
+                               warmup=1, reps=3)
+            parts = device_ms_by_kernel(torch, call, 5) if b == BATCH else {}
+            print(f"{label}: {ms:.4f} ms (median of 10), plain {plain_ms:.3f} ms (median of "
+                  f"3); torch.matmul of its two products "
+                  f"{lib_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+                  f"share {bound['bound_ms'] / ms:.1%})"
+                  + ("; device ms by part: " + (", ".join(
+                      f"{k} {parts[k]:.4f}" for k in K1_PARTS if k in parts) or "not measured")
+                     if b == BATCH else ""))
+            rows[f"{pyramid}_b{b}"] = dict(
+                shape=f"B,Co,Ci,T,depth={b},{co},{ci},{t},{depth}", pyramid=pyramid,
+                max_abs_err=err, outside_1e_4=outside, outputs=b * co * t,
+                snr_vs_plain_db=snr, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], library_ms=lib_ms,
+                library_call="torch.matmul of the proj and res products",
+                parts_ms={k: parts.get(k) for k in K1_PARTS} if parts else None,
+                bit_identical=True)
+        del p, x, acc_in
+        torch.cuda.empty_cache()
+    return rows
+
+
 def k1_long_check(torch, U, lib, shape=LONGFORM_BLOCK) -> dict:
     """K1 at the 10-minute block shape against ``uconv_block_reference`` on
     the card: dB on the block's change (out - x), its CUDA-event time beside
     the plain version's, the ``torch.matmul`` yardstick of its two products,
     and its bound."""
+    from sudo_rm_rf_tpu_torch.utils.benchmark import k1_bound
+
     b, co, ci, t, depth = shape
     p = block_params(torch, depth, ci, co, seed=0)
     x = torch.randn(b, co, t, generator=torch.Generator().manual_seed(1)).cuda()
@@ -3414,9 +3512,161 @@ def parallel_phase(torch, np, tmp: str, hp: dict = FLAGSHIP, device: str = "cuda
     return out
 
 
+# the tools phase: the port's serving and quality scripts (scripts/torch_*.py,
+# examples/torch_quickstart.py) called in this process at a cut: the batch
+# sweep at two batches, the GroupComm int8 gate search at bs4, the quantized sweep of the two U36 configurations at bs4, the
+# roofline timed, the long-form run on 2 minutes of the resident phase's
+# AUGMENTED test split from its checkpoint, and the quickstart
+TOOLS_BATCHES = (8, 32)
+TOOLS_N_HI = 3
+TOOLS_LONGFORM_MINUTES = 2.0
+# the keys each tool promises on a row (numbers, finite; idle_pct null on the CPU)
+TOOL_KEYS = {
+    "batch_sweep": ("bs", "ms_batch", "au_s_per_s", "idle_pct", "k1_launches", "fidelity_db"),
+    "gc_serving": ("bs", "ms_batch", "au_s_per_s", "idle_pct", "k1_launches", "fidelity_db"),
+    "quantized": ("bs", "ms_per_batch", "au_s_per_s", "idle_pct", "k1_launches"),
+    "roofline": ("flops_g", "compute_floor_ms", "logical_bytes_gb", "logical_roofline_ms",
+                 "least_bytes_ms", "floor_ms", "measured_ms", "recoverable_x_max",
+                 "fused_traffic_max_x", "idle_pct", "k1_launches"),
+    "longform": ("si_sdr_db", "si_sdri_db", "seconds_per_recording", "audio_sec_per_sec",
+                 "k1_launches", "idle_pct"),
+}
+
+
+def _tool(path: str):
+    """A script of the repo (``scripts/...`` or ``examples/...``) as a module."""
+    import importlib.util
+
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)), path))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _check_keys(tool: str, rows, cuda: bool) -> None:
+    for row in rows:
+        for key in TOOL_KEYS[tool]:
+            v = row.get(key, "absent")
+            if v is None and key == "idle_pct" and not cuda:
+                continue
+            if not isinstance(v, (int, float)) or not math.isfinite(v):
+                raise RuntimeError(f"tools {tool}: {key} = {v!r} in {row}")
+
+
+def tools_phase(torch, np, tmp: str, resident: dict, device: str = "cuda",
+                tiny: bool = False) -> dict:
+    """The port's tools, each through its ``main(argv)`` with K1's counts at
+    0 before it: the rows' keys present and finite; K1 launched once a block
+    a forward on every ``kernel`` row; ``kernel`` rows >= 80 dB from the fp32
+    plain or ``fma`` forward; bf16 rows >= 35 dB from fp32; the gated GC int8
+    recipe, where one exists, >= 25 dB; every roofline time above its floor.
+    ``tiny`` runs the scripts at their toy sizes (a CPU rehearsal)."""
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+
+    cuda = device.startswith("cuda")
+    common = ["--device", device] + (["--tiny"] if tiny else [])
+    n_hi = ["--n_hi", str(TOOLS_N_HI)]
+    out, launches = {}, {}
+
+    def run(name, path, argv):
+        U.fused_uconv_block.launches = U.fused_uconv_block.launches_bf16_pyramid = 0
+        t0 = time.perf_counter()
+        result = _tool(path).main(argv)
+        launches[name] = (U.fused_uconv_block.launches,
+                          U.fused_uconv_block.launches_bf16_pyramid)
+        print(f"tools {name}: {time.perf_counter() - t0:.1f} s, K1 launches "
+              f"{launches[name][0]} (bf16 pyramid {launches[name][1]})", flush=True)
+        return result
+
+    def need(ok, what):
+        if not ok:
+            raise RuntimeError(f"tools: {what}")
+
+    blocks = 2 if tiny else FLAGSHIP["num_blocks"]
+    k1_per_forward = blocks if cuda else 0
+
+    # the batch sweep over its six paths
+    rows = run("batch_sweep", "scripts/torch_bench_batch_sweep.py",
+               common + n_hi + ["--bs", *map(str, TOOLS_BATCHES)])
+    _check_keys("batch_sweep", rows, cuda)
+    need(len(rows) == 6 * len(TOOLS_BATCHES), f"batch sweep rows {len(rows)}")
+    for r in rows:
+        if r["path"].startswith("kernel"):
+            need(r["k1_launches"] == k1_per_forward, f"batch sweep {r}")
+        if r["path"] == "fma_fp32":
+            need(r["fidelity_db"] >= MIN_FIDELITY_DB, f"fma against kernel {r}")
+        if r["path"] in ("bf16_conv", "fma_bf16", "kernel_bf16_pyramid"):
+            need(r["fidelity_db"] >= BF16_GATE_DB, f"bf16 against fp32 {r}")
+    out["batch_sweep"] = rows
+
+    # the GroupComm int8 gate search and its gated recipe's rows
+    gated = run("gc_families", "scripts/torch_bench_gc_serving.py",
+                common + n_hi + ["--bs", str(BATCH), "--families_sweep"])
+    _check_keys("gc_serving", gated, cuda)
+    need(all(r["gated_fidelity_db"] >= INT8_GATE_DB and r["k1_launches"] == 0
+             for r in gated), f"gated {gated}")
+    out["gc_gated"] = gated
+
+    # the quantized sweep at both U36 configurations
+    out["quantized"] = {}
+    for config in ("u36_2048", "u36_wide"):
+        extra = ["--attribute"] if config == "u36_wide" else []
+        rows = run(f"quantized_{config}", "scripts/torch_bench_quantized.py",
+                   common + n_hi + ["--config", config, "--bs", str(BATCH)] + extra)
+        _check_keys("quantized", rows, cuda)
+        need(len(rows) == 5, f"quantized {config} rows {len(rows)}")
+        depth = 3 if tiny else 36
+        for r in rows:
+            if r["path"] == "fp32_kernel":
+                need(r["k1_launches"] == (depth if cuda else 0), f"quantized {r}")
+                need(r["fidelity_db_vs_fp32"] >= MIN_FIDELITY_DB, f"kernel vs fma {r}")
+            if r["path"] == "bf16_conv":
+                need(r["fidelity_db_vs_fp32"] >= BF16_GATE_DB, f"bf16 vs fp32 {r}")
+        out["quantized"][config] = rows
+
+    # the roofline, timed
+    rows = run("roofline", "scripts/torch_roofline_bound.py",
+               (["--tiny"] if tiny else []) + ["--device", device, "--measure"] + n_hi)
+    _check_keys("roofline", rows, cuda)
+    for r in rows:
+        if r["row"] == "bs4_fp32_kernel":
+            need(r["k1_launches"] == k1_per_forward, f"roofline {r}")
+        need(not cuda or r["measured_ms"] >= r["floor_ms"], f"below its floor: {r}")
+    out["roofline"] = rows
+
+    # the long-form run from the resident phase's AUGMENTED checkpoint
+    aug = resident["augmented"]
+    lf_hp = [a for k, v in aug["hp"].items() if k != "group_size" for a in (f"--{k}", str(v))]
+    summary = run("longform", "scripts/torch_longform_run.py",
+                  ["--checkpoint", aug["checkpoint"], "--corpus", aug["test_corpus"],
+                   "--minutes", str(TOOLS_LONGFORM_MINUTES), "--reps", "1", "--device", device,
+                   "--out", os.path.join(tmp, "longform")] + lf_hp)
+    engines = summary["engines"]
+    _check_keys("longform", engines.values(), cuda)
+    n = int(TOOLS_LONGFORM_MINUTES * 60 * FS)
+    chunk = int(CHUNK_SECONDS * FS)
+    lf_blocks = aug["hp"]["num_blocks"]
+    want = dict(overlap_add=0, overlap_add_kernel=n_forward_batches(n, chunk, 8) * lf_blocks,
+                seq_parallel=lf_blocks) if cuda else dict.fromkeys(engines, 0)
+    for name, r in engines.items():
+        need(r["k1_launches"] == want[name], f"longform {name} {r}, want {want[name]}")
+    need(not cuda or engines["seq_parallel"]["route"] == "kernel", f"route {engines}")
+    out["longform"] = summary
+
+    # the quickstart
+    quick = run("quickstart", "examples/torch_quickstart.py", ["--device", device])
+    need(np.isfinite(quick["losses"]).all() and quick["losses"][-1] < quick["losses"][0]
+         and np.isfinite(quick["long_mixture_si_sdr_db"]), f"quickstart {quick}")
+    out["quickstart"] = quick
+    out["launches"] = launches
+    return out
+
+
 PHASES = ("k1", "k1_bf16", "float64", "serve", "train", "evaluate", "recipes", "augmented",
           "bf16", "int8", "bench", "causal", "zoo", "zoo_cli", "baselines", "musdb",
-          "longform", "parallel", "resident")
+          "longform", "parallel", "resident", "tools")
 
 
 def main(argv=None) -> int:
@@ -3426,10 +3676,13 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="+", choices=PHASES, default=list(PHASES),
-                    help="run these phases only (a rehearsal: no kernels or ok line)")
+                    help="run these phases only (a rehearsal: no kernels or ok line); "
+                         "tools needs resident (its checkpoint and corpus)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the longform phase's 10-minute mixture")
     args = ap.parse_args(argv)
+    if "tools" in args.only and "resident" not in args.only:
+        ap.error("--only tools needs resident too: it serves the resident phase's checkpoint")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -3483,7 +3736,8 @@ def main(argv=None) -> int:
         print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
 
     # 3. the kernel against its plain version; its bf16 pyramid; float64
-    phase("k1", lambda: k1_phase(torch, U, _build.load_kernels(), hmma))
+    phase("k1", lambda: dict(k1_phase(torch, U, _build.load_kernels(), hmma),
+                             wide=k1_wide_check(torch, U)))
     phase("k1_bf16", lambda: k1_bf16_phase(torch, U))
     phase("float64", lambda: k1_float64_phase(torch, U))
 
@@ -3622,13 +3876,25 @@ def main(argv=None) -> int:
 
     # 21. the published recipes as written: device-resident data, chained
     # steps, the in-flight bound, block_impl auto and the native reader
+    # its directory (checkpoint and corpus) lives on for the tools phase
+    resident_dir = tempfile.TemporaryDirectory()
+
     def resident():
-        with tempfile.TemporaryDirectory() as tmp:
-            out = resident_phase(torch, np, tmp)
+        out = resident_phase(torch, np, resident_dir.name)
         print(json.dumps({"resident": out}))
         return out
 
     phase("resident", resident)
+
+    # 22. the port's serving and quality tools
+    def tools():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = tools_phase(torch, np, tmp, res["resident"])
+        print(json.dumps({"tools": out}))
+        return out
+
+    phase("tools", tools)
+    resident_dir.cleanup()
     print(f"phase seconds: {json.dumps(seconds)}")
     if set(args.only) != set(PHASES):
         print(f"chip_smoke: ran {args.only} only; no kernels line and no ok line")
@@ -3698,7 +3964,13 @@ def main(argv=None) -> int:
                                        *res["resident"]["host"].values())),
         "launches_resident_separate": res["resident"]["musdb"]["separate"]["launches"],
         "longform_shape": res["longform"]["k1_long"],
+        # the tools phase: each tool's K1 launches over its run (the batch
+        # sweep's two batches, the quantized sweep's U36 and wide forwards at
+        # 36 a forward, the roofline's timed kernel row, the long-form run's
+        # kernel engines; the GC gate search and the quickstart 0)
+        **{f"launches_tools_{name}": n for name, (n, _) in res["tools"]["launches"].items()},
         **flagship, "gc_shape": k1["groupcomm"], "u36_shape": k1["u36"],
+        "wide_shape": {b: r for b, r in k1["wide"].items() if r["pyramid"] == "fp32"},
         "float64_check": res["float64"],
     }, {
         "name": "fused_uconv_block(pyramid_dtype=bfloat16)", "route": "cuda",
@@ -3707,7 +3979,9 @@ def main(argv=None) -> int:
         "launches": res["bf16"]["relu"]["kernel_bf16_pyramid"]["k1_bf16_pyramid_launches"],
         "launches_gc_bf16_serving": res["bf16"]["groupcomm_v2"]["kernel_bf16_pyramid"][
             "k1_bf16_pyramid_launches"],
+        "launches_tools_batch_sweep": res["tools"]["launches"]["batch_sweep"][1],
         **pyr["flagship"], "gc_shape": pyr["groupcomm"], "u36_shape": pyr["u36"],
+        "wide_shape": {b: r for b, r in k1["wide"].items() if r["pyramid"] == "bf16"},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -177,8 +177,9 @@ def write_whamr_corpus(root: str, n_train: int = 16, n_val: int = 8, n_test: int
             for _ in range(2):
                 dry = synth_utterance(make_speaker(rng), rng, fs, n)
                 wet = fftconvolve(dry, synth_rir(rng, rng.uniform(0.1, 0.5), fs))[:n]
+                wet = wet.astype(np.float32)
                 anech.append(dry / (np.sqrt(np.mean(dry**2)) + 1e-9))
-                reverb.append(wet.astype(np.float32) / (np.sqrt(np.mean(wet**2)) + 1e-9))
+                reverb.append(wet / (np.sqrt(np.mean(wet**2)) + 1e-9))
             noise = _pink_noise(rng, n)
             sp_pow = np.mean((reverb[0] + reverb[1]) ** 2)
             snr_db = rng.uniform(5.0, 20.0)
@@ -244,9 +245,10 @@ def _chirp(rng, n):
 
 def _clicks(rng, n):
     x = np.zeros(n, np.float32)
+    n_clicks = rng.integers(4, 20)  # drawn before the decay, as the script draws them
     decay = np.exp(-np.arange(int(0.05 * FUSS_FS))
                    / (rng.uniform(0.002, 0.01) * FUSS_FS)).astype(np.float32)
-    for _ in range(rng.integers(4, 20)):
+    for _ in range(n_clicks):
         pos = rng.integers(0, n - len(decay))
         x[pos : pos + len(decay)] += rng.uniform(0.3, 1.0) * decay * rng.choice([-1, 1])
     return _resonant_band(x, rng.uniform(1000, 7000), 600)

@@ -136,8 +136,12 @@ def quantize_improved_params(model, compute_dtype=torch.bfloat16,
 
 
 def _site(scales, collector, family, i=None):
-    """The scale and the calibration list of one quantized site."""
-    sc = None if scales is None else (scales[family] if i is None else scales[family][i])
+    """The scale and the calibration list of one quantized site. A family
+    left float has no scales (its weight takes the float product), so its
+    site gets None, as JAX looks a scale up only for an int8 weight."""
+    sc = None if scales is None or scales[family].numel() == 0 else scales[family]
+    if sc is not None and i is not None:
+        sc = sc[i]
     col = None if collector is None else collector[family]
     return sc, col
 

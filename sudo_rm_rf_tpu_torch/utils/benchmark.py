@@ -41,7 +41,38 @@ import torch
 # compute dtype. fp32 is a third of the TF32 tensor-core peak (495e12): the
 # port's fp32-accurate products (K1's GEMMs) are three TF32 passes (3xTF32),
 # so an fp32 row can never read over 100 %.
-H100_PEAKS = {"bfloat16": 989e12, "int8": 1979e12, "float32": 495e12 / 3}
+H100_TF32_PEAK = 495e12
+H100_PEAKS = {"bfloat16": 989e12, "int8": 1979e12, "float32": H100_TF32_PEAK / 3}
+# the same data sheet's fp32 peak on the SIMT pipes (the rate of an fp32
+# product with TF32 off, and of depthwise convs, norms and elementwise
+# work) and its memory rate (bytes/s)
+H100_FP32_SIMT_PEAK = 67e12
+H100_BYTES_PER_S = 3.35e12
+
+
+def k1_flops(b: int, co: int, ci: int, t: int, depth: int) -> tuple:
+    """(GEMM flops, other flops) of one K1 call at (B, Co, Ci, T, depth):
+    the two GEMMs do 2 * B * Ci * Co * T each; the ladder (5 multiply-adds,
+    the fold and PReLU: ~12 flops an output) and the upsample-sum (one
+    multiply-add a level) are fp32-pipe work."""
+    gemm = 2 * 2 * b * ci * co * t
+    other = b * ci * (12 * sum(t >> k for k in range(depth)) + 2 * depth * t)
+    return gemm, other
+
+
+def k1_bound(b: int, co: int, ci: int, t: int, depth: int) -> dict:
+    """Least time (ms) the card could take for one K1 call
+    (``ops.uconv.fused_uconv_block`` at (B, Co, Ci, T, depth)): the larger of
+    its bytes (x in, out, the params, each once) over the memory rate and its
+    operations (:func:`k1_flops`) over the peak of their type. K1 takes its
+    GEMMs in 3xTF32, three TF32 passes on the tensor cores, and
+    ``bound_fp32_simt_ms`` is the same work on the fp32 pipes."""
+    gemm, other = k1_flops(b, co, ci, t, depth)
+    params = 2 * ci * co + ci * (8 * depth + 5) + co
+    mem = 4 * (2 * b * co * t + params) / H100_BYTES_PER_S
+    ops = 3 * gemm / H100_TF32_PEAK + other / H100_FP32_SIMT_PEAK
+    return dict(bound_ms=1e3 * max(ops, mem), bound_by="operations" if ops >= mem else "bytes",
+                bound_fp32_simt_ms=1e3 * max((gemm + other) / H100_FP32_SIMT_PEAK, mem))
 
 
 def count_params(model) -> int:
@@ -202,6 +233,50 @@ def card_label(device) -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def script_device(name: str) -> torch.device:
+    """The device a measurement script runs on: a CUDA device, raising where
+    none is available (no fallback), with TF32 off so that fp32 is fp32; or
+    the CPU, only when the caller names it."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"--device {name}: no CUDA device is available")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def profile_calls(fn: Callable, device, calls: int = 3) -> dict:
+    """K1's launches a call (``ops.uconv.fused_uconv_block``'s count, which
+    only a launch on a card moves) and, on a CUDA device, the idle share (%)
+    of ``calls`` calls: their host wall time to a synchronize against the
+    device's busy time in a ``torch.profiler`` trace of them
+    (:func:`device_busy`), with the device launches a call."""
+    from sudo_rm_rf_tpu_torch.ops import uconv as U
+
+    device = torch.device(device)
+    fn()
+    before = U.fused_uconv_block.launches
+    if device.type != "cuda":
+        for _ in range(calls):
+            fn()
+        return dict(idle_pct=None, device_launches=None,
+                    k1_launches=(U.fused_uconv_block.launches - before) / calls)
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(device)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    k1 = (U.fused_uconv_block.launches - before) / calls
+    busy, launches = device_busy(prof)
+    return dict(idle_pct=100.0 * (1.0 - busy / wall_ms), device_launches=launches / calls,
+                k1_launches=k1)
 
 
 def device_busy(prof) -> tuple:
