@@ -28,6 +28,7 @@ import torch
 from sudo_rm_rf_tpu_torch.losses import mixture_consistency
 from sudo_rm_rf_tpu_torch.parallel import shard_batch
 from sudo_rm_rf_tpu_torch.parallel.collectives import all_gather_rows
+from sudo_rm_rf_tpu_torch.utils import tracing
 
 
 def _hann(n: int) -> np.ndarray:
@@ -97,18 +98,26 @@ class OverlapAddSeparator:
         for start in range(0, n, self.batch_chunks):
             batch = frames[start : start + self.batch_chunks]
             valid = batch.shape[0]
-            if valid < self.batch_chunks:
-                batch = np.concatenate(
-                    [batch, np.zeros((self.batch_chunks - valid, self.chunk), np.float32)],
-                    axis=0,
-                )
-            batch = torch.from_numpy(batch).to(self.device)
-            if self.mesh is None:
-                est = self._forward(batch)
-            else:
-                est = all_gather_rows(self._forward(shard_batch(self.mesh, batch)),
-                                      self.mesh.data_group)
-            outs.append(est[:valid].cpu().numpy())
+            with tracing.span("overlap_add.batch", rows=valid, slots=self.batch_chunks) as sp:
+                with tracing.span("overlap_add.upload"):
+                    if valid < self.batch_chunks:
+                        batch = np.concatenate(
+                            [batch, np.zeros((self.batch_chunks - valid, self.chunk),
+                                             np.float32)],
+                            axis=0,
+                        )
+                    batch = torch.from_numpy(batch).to(self.device)
+                    if self.mesh is not None:
+                        local = shard_batch(self.mesh, batch)
+                with tracing.span("overlap_add.forward"):
+                    if self.mesh is None:
+                        est = self._forward(batch)
+                    else:
+                        est = all_gather_rows(self._forward(local), self.mesh.data_group)
+                with tracing.span("overlap_add.fetch"):
+                    out = est[:valid].cpu().numpy()
+                sp.set(h2d_bytes=batch.nbytes, d2h_bytes=out.nbytes)
+            outs.append(out)
         return np.concatenate(outs, axis=0)
 
     def _align(self, prev_tail: np.ndarray, est: np.ndarray) -> np.ndarray:
@@ -127,38 +136,40 @@ class OverlapAddSeparator:
 
     def separate(self, mixture: np.ndarray) -> np.ndarray:
         """(T,) mixture -> (S, T) separated sources."""
-        mixture = np.asarray(mixture, np.float32).reshape(-1)
-        t = mixture.shape[0]
-        if t <= self.chunk:
-            padded = np.zeros(self.chunk, np.float32)
-            padded[:t] = mixture
-            return self._run_chunks(padded[None])[0][:, :t]
+        with tracing.span("overlap_add.separate") as root:
+            mixture = np.asarray(mixture, np.float32).reshape(-1)
+            t = mixture.shape[0]
+            # one chunk at full weight where t <= chunk
+            n_chunks = max(1, -(-(t - self.chunk) // self.hop) + 1)
+            root.set(samples=t, chunks=n_chunks)
+            with tracing.span("overlap_add.chunk"):
+                total = (n_chunks - 1) * self.hop + self.chunk
+                padded = np.zeros(total, np.float32)
+                padded[:t] = mixture
+                idx = np.arange(self.chunk)[None, :] + self.hop * np.arange(n_chunks)[:, None]
+                frames = padded[idx]
+            est = self._run_chunks(frames)  # (n_chunks, S, chunk)
 
-        n_chunks = -(-(t - self.chunk) // self.hop) + 1
-        total = (n_chunks - 1) * self.hop + self.chunk
-        padded = np.zeros(total, np.float32)
-        padded[:t] = mixture
-        idx = np.arange(self.chunk)[None, :] + self.hop * np.arange(n_chunks)[:, None]
-        est = self._run_chunks(padded[idx])  # (n_chunks, S, chunk)
-
-        out = np.zeros((self.num_sources, total), np.float32)
-        norm = np.zeros(total, np.float32)
-        prev = None
-        for c in range(n_chunks):
-            cur = est[c]
-            if prev is not None:
-                cur = self._align(prev[:, -self.hop :], cur)
-            start = c * self.hop
-            w = self.window.copy()
-            if c == 0:
-                w[: self.hop] = 1.0
-            if c == n_chunks - 1:
-                w[self.hop :] = 1.0
-            out[:, start : start + self.chunk] += cur * w
-            norm[start : start + self.chunk] += w
-            prev = cur
-        out /= np.maximum(norm, 1e-8)
-        return out[:, :t]
+            with tracing.span("overlap_add.stitch"):
+                out = np.zeros((self.num_sources, total), np.float32)
+                norm = np.zeros(total, np.float32)
+                prev = None
+                for c in range(n_chunks):
+                    cur = est[c]
+                    if prev is not None:
+                        with tracing.span("overlap_add.align"):
+                            cur = self._align(prev[:, -self.hop :], cur)
+                    start = c * self.hop
+                    w = self.window.copy()
+                    if c == 0:
+                        w[: self.hop] = 1.0
+                    if c == n_chunks - 1:
+                        w[self.hop :] = 1.0
+                    out[:, start : start + self.chunk] += cur * w
+                    norm[start : start + self.chunk] += w
+                    prev = cur
+                out /= np.maximum(norm, 1e-8)
+                return out[:, :t]
 
 
 def separate_file(

@@ -26,6 +26,7 @@ from sudo_rm_rf_tpu_torch.ops.uconv import (
     uconv_block_fma,
     uconv_block_reference,
 )
+from sudo_rm_rf_tpu_torch.utils import tracing
 
 
 def _kernel_block(x, kp, depth: int, pyramid_dtype=torch.float32):
@@ -159,25 +160,29 @@ def improved_forward_fast(model, input_wav: torch.Tensor, impl: str = None,
     split over its model group (compute tensor parallelism, 'fma' only), and
     every rank returns the whole batch.
     """
-    if impl is None:
-        impl = "kernel" if input_wav.is_cuda and tp_mesh is None else "fma"
-    if impl not in _BLOCKS:
-        raise ValueError(f"impl {impl!r} not in {sorted(_BLOCKS)}")
-    block = _block_fn(impl, pyramid_dtype)
-    if tp_mesh is not None:
-        if impl != "fma":
-            raise ValueError("tp_mesh requires impl='fma'")
-        from sudo_rm_rf_tpu_torch.parallel import shard_batch
-        from sudo_rm_rf_tpu_torch.parallel.collectives import all_gather_rows
+    with tracing.span("forward", rows=input_wav.shape[0]):
+        if impl is None:
+            impl = "kernel" if input_wav.is_cuda and tp_mesh is None else "fma"
+        if impl not in _BLOCKS:
+            raise ValueError(f"impl {impl!r} not in {sorted(_BLOCKS)}")
+        block = _block_fn(impl, pyramid_dtype)
+        if tp_mesh is not None:
+            if impl != "fma":
+                raise ValueError("tp_mesh requires impl='fma'")
+            from sudo_rm_rf_tpu_torch.parallel import shard_batch
+            from sudo_rm_rf_tpu_torch.parallel.collectives import all_gather_rows
 
-        block = functools.partial(uconv_block_fma, tp_group=tp_mesh.model_group)
-        input_wav = shard_batch(tp_mesh, input_wav)
-    model = cast_model(model, compute_dtype, impl)
-    x, s, in_len = _encode(model, input_wav, _dtype(compute_dtype))
-    for blk in model.sm:
-        x = block(x, params_from_module(blk), model.upsampling_depth)
-    est = _decode(model, x, s, in_len, model.num_sources)
-    return est if tp_mesh is None else all_gather_rows(est, tp_mesh.data_group)
+            block = functools.partial(uconv_block_fma, tp_group=tp_mesh.model_group)
+            input_wav = shard_batch(tp_mesh, input_wav)
+        with tracing.span("forward.encode"):
+            model = cast_model(model, compute_dtype, impl)
+            x, s, in_len = _encode(model, input_wav, _dtype(compute_dtype))
+        for blk in model.sm:
+            with tracing.span("forward.block"):
+                x = block(x, params_from_module(blk), model.upsampling_depth)
+        with tracing.span("forward.decode"):
+            est = _decode(model, x, s, in_len, model.num_sources)
+        return est if tp_mesh is None else all_gather_rows(est, tp_mesh.data_group)
 
 
 def _make_bd_mm(b: int, g: int):
