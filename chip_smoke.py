@@ -420,6 +420,14 @@ LONGFORM_SECONDS = 600.0
 LONGFORM_SHARDS = (2, 8)
 LONGFORM_CLI_SECONDS = 60.0
 LONGFORM_BLOCK = (1, 256, 512, int(LONGFORM_SECONDS * FS) // 10, 5)
+# every layout the ladder's chooser (csrc/uconv.cu ladder_work) picks: the
+# flagship block at the serving cell's bs32 (16,384 rows, a tile a row); the
+# U36 block at bs4 and GroupComm's folded shape (2,048 rows, two tiles a
+# row); a ragged T whose two deepest levels (402 and 201 outputs) take the
+# 4-byte paths; the 10-minute block (rows cut into 30 tiles at level 0)
+LADDER_SHAPES = [(32, 256, 512, 3200, 5), U36_BLOCK, GC_BLOCK, (8, 256, 512, 3216, 5),
+                 LONGFORM_BLOCK]
+HBM_BYTES_PER_S = 3.35e12
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 25) -> float:
@@ -464,6 +472,30 @@ def device_ms_by_kernel(torch, fn, calls: int, by_part: bool = True,
         if launches is not None:
             launches[name] = launches.get(name, 0.0) + 1 / calls
     return out
+
+
+def ladder_level_ms(torch, fn, depth: int, calls: int) -> tuple:
+    """(device ms a call of each ladder level, ``fold_kernel`` launches a
+    call) of fn, from the raw device events of a ``torch.profiler`` trace:
+    the ``ladder_kernel`` launches in the order they ran, level k the k-th
+    of each call; (None, None) where the trace does not hold depth of them
+    a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e.start_ns(), e.duration_ns(), e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0)
+    ladders = [ns for _, ns, name in events if re.search(r"\bladder_kernel\b", name)]
+    folds = sum(1 for *_, name in events if re.search(r"\bfold_kernel\b", name))
+    if len(ladders) != depth * calls:
+        return None, None
+    return [sum(ladders[k::depth]) / 1e6 / calls for k in range(depth)], folds / calls
 
 
 def tensor_core_instructions(lib) -> int | None:
@@ -2812,6 +2844,99 @@ def k1_wide_check(torch, U) -> dict:
     return rows
 
 
+def ladder_floor_ms(b: int, ci: int, t: int, depth: int, bf16: bool) -> list:
+    """Least ms of each ladder level at 3.35 TB/s: its fp32 input read once
+    and its outputs written once (fp32; bf16, and in fp32 for the next level
+    but the last)."""
+    out = []
+    for k in range(depth):
+        store = 2 + 4 * (k + 1 < depth) if bf16 else 4
+        out.append(1e3 * b * ci * (4 * (t >> max(k - 1, 0)) + store * (t >> k)) / HBM_BYTES_PER_S)
+    return out
+
+
+def k1_ladder_check(torch, U, lib) -> dict:
+    """K1 at every layout of the ladder (LADDER_SHAPES), with each pyramid,
+    against ``uconv_block_levelwise`` with the same pyramid on the card, and
+    two calls bit-identical. fp32: within rtol = atol = 1e-4. bf16: the
+    same, or bf16 rounding flips under the bf16 pyramid's rule (PYRAMID_*),
+    whose share of outputs past PYRAMID_MAX_ABS may rise to what the plain
+    version in fp32 gives against itself in float64 at that shape (at bs32
+    the share, set at B=4, is below that: 295 outputs past it against 2,491
+    for the plain version, on the tree before this ladder too).
+    The library's work a warp (``ladder_tiles``) must equal
+    ``U.ladder_work``'s, and ``ladder_levels_tiled`` must count the levels
+    with more than one (non-zero at the 10-minute block). Each row: K1's
+    time (CUDA events), each level's ladder time beside its byte floor (its
+    input read and its outputs written once at 3.35 TB/s) and the fold
+    launches a call (torch.profiler)."""
+    rows = {}
+    for shape in LADDER_SHAPES:
+        b, co, ci, t, depth = shape
+        lens = [t >> k for k in range(depth)]
+        work = [U.ladder_tiles(lib, b * ci, n) for n in lens]
+        mirror = [(-(-n // tile), group, tile)
+                  for n, (group, tile) in ((n, U.ladder_work(b * ci, n)) for n in lens)]
+        if work != mirror:
+            raise RuntimeError(f"ladder work at {shape}: library {work}, ops/uconv.py {mirror}")
+        tiles = [w[0] for w in work]
+        p = block_params(torch, depth, ci, co, seed=0)
+        x = torch.randn(b, co, t, generator=torch.Generator().manual_seed(1)).cuda()
+        for pyramid, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            label = f"K1 ladder {pyramid} pyramid {shape}"
+            before = U.fused_uconv_block.ladder_levels_tiled
+            got = U.fused_uconv_block(x, p, depth, dt)
+            torch.cuda.synchronize()
+            tiled = U.fused_uconv_block.ladder_levels_tiled - before
+            if tiled != sum(n > 1 for n in tiles) or (shape == LONGFORM_BLOCK and tiled == 0):
+                raise RuntimeError(f"{label}: ladder_levels_tiled counted {tiled}, tiles {tiles}")
+            want = U.uconv_block_levelwise(x, p, depth, dt)
+            diff = (got - want).abs()
+            err = diff.max().item()
+            outside = int((diff > 1e-4 + 1e-4 * want.abs()).sum())
+            snr = _snr_db(torch, want - x, got - x)
+            past, plain = int((diff > PYRAMID_MAX_ABS).sum()), ""
+            ok = outside == 0
+            if pyramid == "bf16":
+                # what bf16 rounding flips alone give at this shape: the plain
+                # version in fp32 against itself in float64, with the same store
+                want64 = U.uconv_block_levelwise(
+                    x.double(), {k: v.double() for k, v in p.items()}, depth, dt)
+                plain_past = int(((want.double() - want64).abs() > PYRAMID_MAX_ABS).sum())
+                del want64
+                ok = ok or (snr >= PYRAMID_MIN_DB and err <= PYRAMID_FLIP_MAX and past
+                            <= max(PYRAMID_FLIP_SHARE * diff.numel(), plain_past))
+                plain = (f", {past} past {PYRAMID_MAX_ABS} (the plain version in fp32 against "
+                         f"itself in float64: {plain_past})")
+            print(f"{label}: (tiles a row, rows a warp, tile) {work}; vs "
+                  f"uconv_block_levelwise max_abs_err "
+                  f"{err:.3e}, {outside} of {diff.numel()} outputs outside rtol = atol = 1e-4, "
+                  f"{snr:.2f} dB on (out - x)" + plain)
+            if not ok:
+                raise RuntimeError(f"{label}: {outside} outputs outside 1e-4, max |delta| "
+                                   f"{err:.3e}, {snr:.2f} dB")
+            if not torch.equal(got, U.fused_uconv_block(x, p, depth, dt)):
+                raise RuntimeError(f"{label}: two calls differ")
+            del got, want, diff
+            call = lambda dt=dt: U.fused_uconv_block(x, p, depth, dt)  # noqa: E731
+            ms = time_ms(torch, call, warmup=2, reps=10)
+            level_ms, folds = ladder_level_ms(torch, call, depth, 5)
+            floor_ms = ladder_floor_ms(b, ci, t, depth, pyramid == "bf16")
+            print(f"{label}: {ms:.4f} ms (median of 10); ladder device ms a level "
+                  + (", ".join(f"{m:.4f} (floor {f:.4f})" for m, f in zip(level_ms, floor_ms))
+                     + f", sum {sum(level_ms):.4f} (floor {sum(floor_ms):.4f}, "
+                     f"{sum(floor_ms) / sum(level_ms):.1%} of HBM bandwidth); fold_kernel "
+                     f"launches a call {folds:g}" if level_ms else "not measured"))
+            rows[f"{pyramid} " + ",".join(map(str, shape))] = dict(
+                shape=f"B,Co,Ci,T,depth={b},{co},{ci},{t},{depth}", pyramid=pyramid,
+                work=work, ladder_levels_tiled=tiled, max_abs_err=err,
+                outside_1e_4=outside, snr_vs_plain_db=snr, ms=ms, ladder_level_ms=level_ms,
+                ladder_floor_ms=floor_ms, fold_launches=folds, bit_identical=True)
+        del p, x
+        torch.cuda.empty_cache()
+    return rows
+
+
 def k1_long_check(torch, U, lib, shape=LONGFORM_BLOCK) -> dict:
     """K1 at the 10-minute block shape against ``uconv_block_reference`` on
     the card: dB on the block's change (out - x), its CUDA-event time beside
@@ -3737,7 +3862,8 @@ def main(argv=None) -> int:
 
     # 3. the kernel against its plain version; its bf16 pyramid; float64
     phase("k1", lambda: dict(k1_phase(torch, U, _build.load_kernels(), hmma),
-                             wide=k1_wide_check(torch, U)))
+                             wide=k1_wide_check(torch, U),
+                             ladder=k1_ladder_check(torch, U, _build.load_kernels())))
     phase("k1_bf16", lambda: k1_bf16_phase(torch, U))
     phase("float64", lambda: k1_float64_phase(torch, U))
 
@@ -3971,6 +4097,7 @@ def main(argv=None) -> int:
         **{f"launches_tools_{name}": n for name, (n, _) in res["tools"]["launches"].items()},
         **flagship, "gc_shape": k1["groupcomm"], "u36_shape": k1["u36"],
         "wide_shape": {b: r for b, r in k1["wide"].items() if r["pyramid"] == "fp32"},
+        "ladder_shapes": {n: r for n, r in k1["ladder"].items() if r["pyramid"] == "fp32"},
         "float64_check": res["float64"],
     }, {
         "name": "fused_uconv_block(pyramid_dtype=bfloat16)", "route": "cuda",
@@ -3982,6 +4109,7 @@ def main(argv=None) -> int:
         "launches_tools_batch_sweep": res["tools"]["launches"]["batch_sweep"][1],
         **pyr["flagship"], "gc_shape": pyr["groupcomm"], "u36_shape": pyr["u36"],
         "wide_shape": {b: r for b, r in k1["wide"].items() if r["pyramid"] == "bf16"},
+        "ladder_shapes": {n: r for n, r in k1["ladder"].items() if r["pyramid"] == "bf16"},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,8 @@
 //   fold          moments -> per-(batch, channel) (a, b) with a*v + b == GlobLN(v)
 //   ladder k      raw_k = dwconv_k(f_k(raw_{k-1})) + bias, f_0 = prelu(a_p y + b_p),
 //                 f_k = a_{k-1} v + b_{k-1}; k=5, pad 2, stride 1 then 2,
-//                 y[t] = sum_j w[j] x[s t + j - 2]; per-row moments; then fold
+//                 y[t] = sum_j w[j] x[s t + j - 2]; moments per (row, time
+//                 tile); the launch's last block of each batch element folds
 //   upsample-sum  acc[t] = sum_k (a_k raw_k[t >> k] + b_k) (the reverse
 //                 nearest-2x chain in closed form); per-row moments; then fold
 //   res GEMM      out = W_r prelu(a_f acc + b_f) + b_r + x; the prologue
@@ -23,8 +24,11 @@
 // What bounds it on this card: the two GEMMs, 2 * 2 * B * Ci * Co * T flops
 // (6.7 GFLOP at B=4, Co=256, Ci=512, T=3200). On the fp32 FMA pipes (67
 // TFLOP/s) that alone is 0.10 ms; the tensor cores run TF32 at 495 TFLOP/s.
-// The other kernels are memory-bound: the upsample-sum reads five levels and
-// writes one plane (~77 MB at B=4, 23 us at 3.35 TB/s).
+// The other kernels are memory-bound: the ladder reads each level's input
+// and writes its output once, 15,400 floats a (batch, channel) row at
+// T=3200 (1.0 GB at B=32, 0.30 ms at 3.35 TB/s; its 10 flops an output take
+// a twentieth of that); the upsample-sum reads five levels and writes one
+// plane (~77 MB at B=4, 23 us).
 //
 // What the design does about it:
 // * GEMMs on the tensor cores in 3xTF32: each operand v is split into
@@ -51,14 +55,29 @@
 //   memory a block), so one block's loads and epilogue overlap the other's
 //   tensor-core work. The tile is 64 channels wide: the stage sum and the
 //   running sum of a 128-channel tile would not fit 128 registers.
+// * The ladder is a stencil: one warp takes one (row, time tile), in passes
+//   of 8 outputs a lane. A lane loads its outputs' 8 (stride 1) or 16
+//   (stride 2) inputs in 16-byte loads, applies the fold (and PReLU) once to
+//   each, takes the 2 inputs before and the 1 or 2 after from its neighbour
+//   lanes by shuffle, and stores its outputs 16 bytes at a time. Tiles are
+//   chosen from the level's row count and length alone (ladder_work): long
+//   rows are cut, a level with few rows is cut until its warps fill the
+//   card, and a level of many short rows gives a warp several. Each lane
+//   merges its chunks' exact (mean, M2) with Chan's formula, once a chunk
+//   of 8, and the warp writes one triple for all it took. The fold runs
+//   inside the level's launch: the last block of a batch element to finish
+//   (an atomic count of its tiles) merges that element's triples and writes
+//   the next level's (a, b), so a call launches the fold kernel only for the
+//   proj GEMM and the upsample-sum.
 // * The upsample-sum works on chunks of 8 outputs a thread: float4 loads of
 //   level 0, one load per 2^k outputs of level k, float4 stores, and the
 //   chunk's exact (mean, M2) merged with Chan's formula once per chunk.
 //
 // Statistics: every block writes (count, mean, M2) of its tiles, computed in
-// registers and merged in a fixed order with Chan's formula; the fold kernel
-// merges the tiles in float64 in a fixed order. No atomics, so the result is
-// the same on every run; no one-pass E[x^2] - E[x]^2.
+// registers and merged in a fixed order with Chan's formula; a fold merges
+// the tiles in float64 in a fixed order. The ladder's atomic only elects the
+// block that merges, never the order it merges in, so the result is the same
+// on every run; no one-pass E[x^2] - E[x]^2.
 //
 // Pyramid type (the TPU kernel's pyramid_dtype): fp32 or bf16. With bf16 the
 // ladder keeps the TPU kernel's semantics: each level's statistics come from
@@ -88,6 +107,11 @@ constexpr int SUB = 64;             // statistics sub-tile: 64 channels x 64 tim
 constexpr int BN = 64;              // channels of a GEMM block's tile
 constexpr int WPAD_M = BN;          // split weights: rows padded to whole tiles
 constexpr int CHUNK = 8;            // upsample-sum outputs per thread and chunk
+constexpr int LANE_OUT = 8;         // ladder outputs a lane takes in one pass
+constexpr int PASS = 32 * LANE_OUT;  // ladder outputs of one warp pass
+constexpr int MAX_TILE = 64 * PASS;  // the longest ladder tile a warp takes
+constexpr int MIN_WORK = 4 * PASS;  // ladder outputs a warp should take, rows allowing
+constexpr int FILL = 4096;          // ladder warps that fill the card: 132 SMs x ~32
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int round_up(int a, int b) { return cdiv(a, b) * b; }
@@ -114,13 +138,6 @@ __device__ inline void chan_merge(T& n, T& mean, T& m2, T nb, T meanb, T m2b) {
   mean += d * (nb / nt);
   m2 += m2b + d * d * (n * nb / nt);
   n = nt;
-}
-
-__device__ inline void welford(float& n, float& mean, float& m2, float v) {
-  n += 1.f;
-  float d = v - mean;
-  mean += d / n;
-  m2 += d * (v - mean);
 }
 
 // Fixed-order tree merge of one moment triple per thread; the block's total
@@ -224,9 +241,13 @@ __device__ inline void wgmma_m64n64k8(float (&d)[32], const uint32_t (&a)[4], ui
 
 // Blocks with blockIdx.y = 0 split W0 (M0, K0), those with 1 split W1, into
 // S = (hi, lo) planes of (round_up(M, WPAD_M), round_up(K, BK)), zero-padded.
+// Block (0, 0) also zeroes the ladder's nc counters.
 __global__ void __launch_bounds__(NT) split_kernel(
     const float* __restrict__ W0, int M0, int K0, float* __restrict__ S0,
-    const float* __restrict__ W1, int M1, int K1, float* __restrict__ S1) {
+    const float* __restrict__ W1, int M1, int K1, float* __restrict__ S1,
+    int* __restrict__ counters, int nc) {
+  if (blockIdx.x == 0 && blockIdx.y == 0)
+    for (int i = threadIdx.x; i < nc; i += NT) counters[i] = 0;
   const bool second = blockIdx.y == 1;
   const float* W = second ? W1 : W0;
   float* S = second ? S1 : S0;
@@ -489,17 +510,29 @@ __global__ void __launch_bounds__(GT, 2) gemm_kernel(
   partials[3 * p + 2] = m2;
 }
 
-// One block per batch element: merge its P moment triples in float64, then
-// write the GlobLN fold a[b, c] = g[c] rstd, sh[b, c] = beta[c] - a[b, c] mean.
-__global__ void __launch_bounds__(NT) fold_kernel(
-    const float* __restrict__ partials, int P, const float* __restrict__ gamma,
-    const float* __restrict__ beta, int C, float eps, float* __restrict__ fa,
-    float* __restrict__ fb) {
-  const int b = blockIdx.x, tid = threadIdx.x;
+// One block: merge batch element b's P moment triples (at partials[3 P b])
+// in float64, thread tid taking p = tid, tid + NT, ... in that order and
+// the threads then merged by block_moments, then write the GlobLN fold
+// a[b, c] = g[c] rstd, sh[b, c] = beta[c] - a[b, c] mean. The triples are
+// read from L2 (__ldcg: in the ladder other blocks of the same launch wrote
+// them), eight of a thread's in flight at once.
+__device__ void fold_batch(const float* __restrict__ partials, int P, int b,
+                           const float* __restrict__ gamma, const float* __restrict__ beta,
+                           int C, float eps, float* __restrict__ fa, float* __restrict__ fb) {
+  constexpr int AHEAD = 8;
+  const int tid = threadIdx.x;
   const float* pp = partials + (size_t)b * P * 3;
   double n = 0.0, mean = 0.0, m2 = 0.0;
-  for (int p = tid; p < P; p += NT)
-    chan_merge<double>(n, mean, m2, pp[3 * p], pp[3 * p + 1], pp[3 * p + 2]);
+  for (int p0 = tid; p0 < P; p0 += AHEAD * NT) {
+    float q[AHEAD][3];
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u)
+#pragma unroll
+      for (int e = 0; e < 3; ++e)  // a count of 0 merges nothing
+        q[u][e] = p0 + u * NT < P ? __ldcg(pp + 3 * (p0 + u * NT) + e) : 0.f;
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) chan_merge<double>(n, mean, m2, q[u][0], q[u][1], q[u][2]);
+  }
   block_moments(n, mean, m2);
   const float rstd = (float)(1.0 / sqrt(m2 / n + (double)eps));
   const float mu = (float)mean;
@@ -510,56 +543,218 @@ __global__ void __launch_bounds__(NT) fold_kernel(
   }
 }
 
-__device__ inline void store_level(float* p, float v) { *p = v; }
-__device__ inline void store_level(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// One block per batch element: fold_batch of its P moment triples.
+__global__ void __launch_bounds__(NT) fold_kernel(
+    const float* __restrict__ partials, int P, const float* __restrict__ gamma,
+    const float* __restrict__ beta, int C, float eps, float* __restrict__ fa,
+    float* __restrict__ fb) {
+  fold_batch(partials, P, blockIdx.x, gamma, beta, C, eps, fa, fb);
+}
 
-// One block per (channel, batch) row: out[t] = bias + sum_j w[j] f(in[s t + j - 2])
-// for t < Tout, zero outside [0, Tin); f(v) = fa v + fb, then PReLU when slope
-// is set. Stores out in the pyramid's type P at store, and in fp32 at next
-// when next is set (a bf16 pyramid: the next level's input). Writes the
-// row's moments, of the fp32 values, at partials[3 * (b * C + c)].
-template <typename P>
+// Four ladder outputs stored at p: 16 bytes in fp32; in bf16, rounded to
+// nearest even, 8 bytes (the first value in the low half of the first word).
+// p is aligned to that width.
+__device__ inline void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ inline uint32_t bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+__device__ inline void store4(__nv_bfloat16* p, const float* v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]));
+}
+__device__ inline void store1(float* p, float v) { *p = v; }
+__device__ inline void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// The ladder's work a warp, from the level's row count (B * C) and output
+// length alone: each warp takes `group` rows of one tile of `tile` outputs.
+// A row is cut into at least cdiv(tout, MAX_TILE) tiles, and into up to
+// cdiv(FILL, rows) where the rows alone leave the card short of warps, but
+// no tile is cut shorter than one pass; the tile is a multiple of
+// LANE_OUT, so a lane's outputs never straddle two tiles. Where whole rows
+// are shorter than MIN_WORK and the level has warps to spare, a warp takes
+// several, so that its fixed costs (the moments' merge, the count) are
+// spread over more outputs.
+struct LadderWork {
+  int group, tile;
+};
+LadderWork ladder_work(int rows, int tout) {
+  const int fill = std::min(cdiv(FILL, rows), cdiv(tout, PASS));
+  const int tiles = std::max(cdiv(tout, MAX_TILE), fill);
+  const int tile = round_up(cdiv(tout, tiles), LANE_OUT);
+  const int group = tile < tout ? 1 : std::max(1, std::min(cdiv(MIN_WORK, tout), rows / FILL));
+  return {group, tile};
+}
+
+// Level k of the ladder, stride S, on rows b * C + c of Tin inputs and Tout
+// = Tin / S outputs: out[t] = bias[c] + sum_j w[c, j] f(in[S t + j - 2]),
+// f(v) = fa v + fb (then PReLU when slope is set), f(in) zero outside
+// [0, Tin). Stores out in the pyramid's type P at store, and in fp32 at
+// next when next is set (a bf16 pyramid: the next level's input).
+//
+// Warp v of batch element b (blockIdx.y) takes tile v % tiles of the
+// `group` rows from c = group (v / tiles) (ladder_work: several rows only
+// where a row is one tile), in passes of PASS: lane l takes the LANE_OUT
+// outputs from t = t0 + LANE_OUT l, loads their LANE_OUT S inputs, applies
+// f once to each, and takes in[S t - 2], in[S t - 1] from lane l - 1 and
+// in[S t + LANE_OUT S] (and + 1 at stride 1) from lane l + 1 by shuffle;
+// lanes 0 and 31 load those from the row. Each lane merges each chunk's
+// exact (mean, M2) with Chan's formula, the warp merges its lanes in a
+// fixed order, and lane 0 writes the moments of the warp's outputs, of
+// the fp32 values, at partials[3 (b nw + v)], nw = cdiv(C, group) tiles.
+//
+// The fold: thread 0 adds the block's warps to counter[b] once their
+// moments are written (a barrier, then one fence: the pattern of a grid
+// sync); the block that completes the count merges b's nw triples
+// (fold_batch, a fixed order), writes the fold of the next level at ga, gb
+// and sets counter[b] back to 0 for the next launch.
+//
+// VEC: Tin and Tout are multiples of 4 and in, next and store aligned, so
+// inputs load 16 bytes at a time and outputs store 4 at a time.
+template <typename P, int S, bool VEC>
 __global__ void __launch_bounds__(NT) ladder_kernel(
     const float* __restrict__ in, int Tin, const float* __restrict__ fa,
     const float* __restrict__ fb, const float* __restrict__ slope,
-    const float* __restrict__ w, const float* __restrict__ bias, int stride,
-    float* __restrict__ next, P* __restrict__ store, int Tout, int C,
-    float* __restrict__ partials) {
-  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const size_t row = (size_t)b * C + c;
-  const float* src = in + row * Tin;
-  P* dst = store + row * Tout;
-  float* nxt = next ? next + row * Tout : nullptr;
-  const float a = fa[row], sh = fb[row];
+    const float* __restrict__ w, const float* __restrict__ bias,
+    float* __restrict__ next, P* __restrict__ store, int Tout, int C, int group,
+    int tile, float* __restrict__ partials, const float* __restrict__ gamma,
+    const float* __restrict__ beta, float eps, float* __restrict__ ga,
+    float* __restrict__ gb, int* __restrict__ counter) {
+  constexpr int WARPS = NT / 32, NI = S * LANE_OUT;
+  constexpr unsigned FULL = 0xffffffffu;
+  const int b = blockIdx.y, lane = threadIdx.x & 31;
+  const int tiles = cdiv(Tout, tile), nw = cdiv(C, group) * tiles;
+  const int v = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const bool act = slope != nullptr;
   const float sl = act ? *slope : 0.f;
-  float wj[5];
+  if (v < nw) {  // the whole warp, or none of it
+    const int t_begin = (v % tiles) * tile, t_end = min(Tout, t_begin + tile);
+    const int c_begin = (v / tiles) * group, c_end = min(C, c_begin + group);
+    float n = 0.f, mean = 0.f, m2 = 0.f;
+    for (int c = c_begin; c < c_end; ++c) {
+      const size_t row = (size_t)b * C + c;
+      const float* src = in + row * Tin;
+      P* dst = store + row * Tout;
+      float* nxt = next ? next + row * Tout : nullptr;
+      const float a = fa[row], sh = fb[row];
+      auto f = [&](float u) {
+        u = fmaf(a, u, sh);
+        return act && u < 0.f ? sl * u : u;
+      };
+      float wj[5];
 #pragma unroll
-  for (int j = 0; j < 5; ++j) wj[j] = w[(size_t)c * 5 + j];
-  const float bi = bias[c];
-  float n = 0.f, mean = 0.f, m2 = 0.f;
-  for (int t = tid; t < Tout; t += NT) {
-    float acc = 0.f;
+      for (int j = 0; j < 5; ++j) wj[j] = w[(size_t)c * 5 + j];
+      const float bi = bias[c];
+      for (int t0 = t_begin; t0 < t_end; t0 += PASS) {
+        const int t = t0 + LANE_OUT * lane, i0 = S * t;
+        // the raw inputs: the lane's NI from i0, and for lanes 0 and 31 their
+        // two halo inputs from hs = i0 - 2 or i0 + NI, all issued before any
+        // is used
+        const int hs = lane == 0 ? i0 - 2 : i0 + NI;
+        float r[NI], h[2];
+        if (VEC) {
 #pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      const int i = stride * t + j - 2;
-      if (i >= 0 && i < Tin) {
-        float v = fmaf(a, src[i], sh);
-        if (act) v = v >= 0.f ? v : sl * v;
-        acc = fmaf(wj[j], v, acc);
+          for (int q = 0; q < NI / 4; ++q) {
+            float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (i0 + 4 * q < Tin)  // Tin % 4 == 0: four in the row, or none
+              u = __ldg(reinterpret_cast<const float4*>(src + i0 + 4 * q));
+            r[4 * q] = u.x;
+            r[4 * q + 1] = u.y;
+            r[4 * q + 2] = u.z;
+            r[4 * q + 3] = u.w;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < NI; ++i) r[i] = i0 + i < Tin ? __ldg(src + i0 + i) : 0.f;
+        }
+        const bool edge = lane == 0 || lane == 31;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          h[e] = edge && hs + e >= 0 && hs + e < Tin ? __ldg(src + hs + e) : 0.f;
+        // x[2 + i] = f(in[i0 + i]); x[0], x[1], x[NI + 2], x[NI + 3] the halo;
+        // f(in) is zero outside the row
+        float x[NI + 4], hf[2];
+#pragma unroll
+        for (int i = 0; i < NI; ++i) x[2 + i] = i0 + i < Tin ? f(r[i]) : 0.f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) hf[e] = hs + e >= 0 && hs + e < Tin ? f(h[e]) : 0.f;
+        x[0] = __shfl_up_sync(FULL, x[NI], 1);
+        x[1] = __shfl_up_sync(FULL, x[NI + 1], 1);
+        x[NI + 2] = __shfl_down_sync(FULL, x[2], 1);
+        x[NI + 3] = __shfl_down_sync(FULL, x[3], 1);
+        if (lane == 0) {
+          x[0] = hf[0];
+          x[1] = hf[1];
+        }
+        if (lane == 31) {
+          x[NI + 2] = hf[0];
+          x[NI + 3] = hf[1];
+        }
+        float o[LANE_OUT];
+#pragma unroll
+        for (int j = 0; j < LANE_OUT; ++j) {
+          float acc = 0.f;
+#pragma unroll
+          for (int i = 0; i < 5; ++i) acc = fmaf(wj[i], x[S * j + i], acc);
+          o[j] = acc + bi;
+        }
+        const int cnt = max(0, min(LANE_OUT, t_end - t));
+        if (VEC) {  // t % 8 == 0 and t_end % 4 == 0: cnt is 0, 4 or 8
+#pragma unroll
+          for (int h = 0; h < LANE_OUT / 4; ++h)
+            if (4 * h < cnt) {
+              store4(dst + t + 4 * h, o + 4 * h);
+              if (nxt) store4(nxt + t + 4 * h, o + 4 * h);
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < LANE_OUT; ++j)
+            if (j < cnt) {
+              store1(dst + t + j, o[j]);
+              if (nxt) nxt[t + j] = o[j];
+            }
+        }
+        if (cnt > 0) {
+          float s = 0.f;
+#pragma unroll
+          for (int j = 0; j < LANE_OUT; ++j) s += j < cnt ? o[j] : 0.f;
+          const float mu = s / (float)cnt;
+          float q = 0.f;
+#pragma unroll
+          for (int j = 0; j < LANE_OUT; ++j)
+            if (j < cnt) q += (o[j] - mu) * (o[j] - mu);
+          chan_merge(n, mean, m2, (float)cnt, mu, q);
+        }
       }
     }
-    acc += bi;
-    store_level(dst + t, acc);
-    if (nxt) nxt[t] = acc;
-    welford(n, mean, m2, acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float nb = __shfl_down_sync(FULL, n, off);
+      const float mb = __shfl_down_sync(FULL, mean, off);
+      const float qb = __shfl_down_sync(FULL, m2, off);
+      chan_merge(n, mean, m2, nb, mb, qb);
+    }
+    if (lane == 0) {
+      float* p = partials + 3 * ((size_t)b * nw + v);
+      p[0] = n;
+      p[1] = mean;
+      p[2] = m2;
+    }
   }
-  block_moments(n, mean, m2);
-  if (tid == 0) {
-    partials[3 * row] = n;
-    partials[3 * row + 1] = mean;
-    partials[3 * row + 2] = m2;
+
+  __shared__ bool last;
+  __syncthreads();  // the block's moments are written
+  if (threadIdx.x == 0) {
+    const int mine = min(WARPS, nw - (int)blockIdx.x * WARPS);
+    __threadfence();  // they reach every SM before the count does
+    last = atomicAdd(counter + b, mine) == nw - mine;
+    if (last) __threadfence();  // and the other blocks' before this block reads them
   }
+  __syncthreads();
+  if (!last) return;
+  fold_batch(partials, nw, b, gamma, beta, C, eps, ga, gb);
+  if (threadIdx.x == 0) counter[b] = 0;
 }
 
 // Aligned loads of 8, 4 or 2 consecutive pyramid values and of one, upcast to
@@ -697,9 +892,10 @@ __global__ void __launch_bounds__(NT) upsum_kernel(
 
 // Sections of the workspace, in floats: y (the proj output, then acc), ping
 // (a bf16 pyramid's second fp32 ladder plane; empty for fp32), pyr (the
-// levels, fp32 or bf16), folds, partials, W's two split planes.
+// levels, fp32 or bf16), folds, partials, the ladder's B counters (int),
+// W's two split planes.
 struct Layout {
-  size_t y, ping, pyr, folds, part, sp, sr, total;
+  size_t y, ping, pyr, folds, part, cnt, sp, sr, total;
 };
 
 size_t split_floats(int M, int K) { return 2 * (size_t)round_up(M, WPAD_M) * round_up(K, BK); }
@@ -709,15 +905,21 @@ Layout layout(int B, int Co, int Ci, int T, int depth, bool bf16) {
   const size_t plane = (size_t)B * Ci;
   size_t pyr = 0;
   for (int k = 0; k < depth; ++k) pyr += plane * (T >> k);
-  const size_t tiles = (size_t)cdiv(Ci, SUB) * cdiv(T, SUB);
-  const size_t parts = 3 * (size_t)B * (tiles > (size_t)Ci ? tiles : (size_t)Ci);
+  // moment triples a batch element: the proj GEMM's sub-tiles, the ladder's
+  // warps, the upsample-sum's rows
+  size_t units = std::max((size_t)cdiv(Ci, SUB) * cdiv(T, SUB), (size_t)Ci);
+  for (int k = 0; k < depth; ++k) {
+    const LadderWork lw = ladder_work(B * Ci, T >> k);
+    units = std::max(units, (size_t)cdiv(Ci, lw.group) * cdiv(T >> k, lw.tile));
+  }
   Layout L;
   L.y = 0;
   L.ping = align64(L.y + plane * T);
   L.pyr = align64(L.ping + (bf16 ? plane * T : 0));
   L.folds = align64(L.pyr + (bf16 ? (pyr + 1) / 2 : pyr));
   L.part = align64(L.folds + 2 * (size_t)(depth + 2) * plane);
-  L.sp = align64(L.part + parts);
+  L.cnt = align64(L.part + 3 * (size_t)B * units);
+  L.sp = align64(L.cnt + B);
   L.sr = align64(L.sp + split_floats(Ci, Co));
   L.total = L.sr + split_floats(Co, Ci);
   return L;
@@ -749,36 +951,59 @@ cudaError_t gemm(cudaStream_t st, const float* S, const float* X,
   return launch_gemm<PRO, false>(st, S, X, bias, pa, pb, slope, R, out, partials, B, M, K, N);
 }
 
-// The ladder (depth levels, each with its fold into folds slot k + 1) and
-// the upsample-sum into y with its moments in part, over a pyramid of type
-// P. An fp32 pyramid feeds level k + 1 from level k's stored values; a bf16
-// one from its fp32 values, which alternate between ping (even levels) and y
-// (odd levels; y is dead once level 0 has read it); the last level's are
-// not kept.
+// Launches level k of the ladder (stride S) with its fold (see
+// ladder_kernel), its warps' work from ladder_work, 16-byte accesses where
+// the lengths and pointers allow.
+template <typename P, int S>
+void launch_ladder(cudaStream_t st, const float* in, int tin, const float* fa,
+                   const float* fb, const float* slope, const float* w, const float* bias,
+                   float* next, P* store, int B, int C, float* part, const float* gamma,
+                   const float* beta, float eps, float* ga, float* gb, int* counter) {
+  const int tout = tin / S;
+  const LadderWork lw = ladder_work(B * C, tout);
+  const dim3 grid(cdiv(cdiv(C, lw.group) * cdiv(tout, lw.tile), NT / 32), B);
+  const bool aligned = ((uintptr_t)in | (uintptr_t)next) % 16 == 0 &&
+                       (uintptr_t)store % (4 * sizeof(P)) == 0;
+  if (tin % 4 == 0 && tout % 4 == 0 && aligned)
+    ladder_kernel<P, S, true><<<grid, NT, 0, st>>>(in, tin, fa, fb, slope, w, bias, next, store,
+                                                  tout, C, lw.group, lw.tile, part, gamma,
+                                                  beta, eps, ga, gb, counter);
+  else
+    ladder_kernel<P, S, false><<<grid, NT, 0, st>>>(in, tin, fa, fb, slope, w, bias, next,
+                                                   store, tout, C, lw.group, lw.tile, part,
+                                                   gamma, beta, eps, ga, gb, counter);
+}
+
+// The ladder (depth levels, each folding into folds slot k + 1 in its own
+// launch) and the upsample-sum into y with its moments in part, over a
+// pyramid of type P. An fp32 pyramid feeds level k + 1 from level k's
+// stored values; a bf16 one from its fp32 values, which alternate between
+// ping (even levels) and y (odd levels; y is dead once level 0 has read
+// it); the last level's are not kept.
 template <typename P>
 void ladder_upsum(cudaStream_t st, float* y, float* ping, P* pyr, float* folds,
-                  float* part, const float* proj_slope, const float* dw_w,
+                  float* part, int* counter, const float* proj_slope, const float* dw_w,
                   const float* dw_b, const float* dw_g, const float* dw_beta,
                   int B, int Ci, int T, int depth, float eps) {
   constexpr bool narrow = !std::is_same<P, float>::value;
   const size_t plane = (size_t)B * Ci;
   auto fa = [&](int s) { return folds + (size_t)(2 * s) * plane; };
   auto fb = [&](int s) { return folds + (size_t)(2 * s + 1) * plane; };
-  const dim3 rows(Ci, B);
   const float* in = y;
   int tin = T;
   size_t off = 0;
   for (int k = 0; k < depth; ++k) {
-    const int s = k == 0 ? 1 : 2;
-    const int tout = tin / s;
     P* rk = pyr + off;
     float* next = narrow && k + 1 < depth ? (k % 2 == 0 ? ping : y) : nullptr;
-    ladder_kernel<P><<<rows, NT, 0, st>>>(
-        in, tin, fa(k), fb(k), k == 0 ? proj_slope : nullptr,
-        dw_w + (size_t)k * Ci * 5, dw_b + (size_t)k * Ci, s, next, rk, tout, Ci, part);
-    fold_kernel<<<B, NT, 0, st>>>(part, Ci, dw_g + (size_t)k * Ci,
-                                  dw_beta + (size_t)k * Ci, Ci, eps, fa(k + 1),
-                                  fb(k + 1));
+    const float *w = dw_w + (size_t)k * Ci * 5, *bias = dw_b + (size_t)k * Ci;
+    const float *g = dw_g + (size_t)k * Ci, *beta = dw_beta + (size_t)k * Ci;
+    if (k == 0)
+      launch_ladder<P, 1>(st, in, tin, fa(k), fb(k), proj_slope, w, bias, next, rk, B, Ci,
+                          part, g, beta, eps, fa(k + 1), fb(k + 1), counter);
+    else
+      launch_ladder<P, 2>(st, in, tin, fa(k), fb(k), nullptr, w, bias, next, rk, B, Ci, part,
+                          g, beta, eps, fa(k + 1), fb(k + 1), counter);
+    const int tout = k == 0 ? tin : tin / 2;
     if constexpr (narrow) {
       in = next;
     } else {
@@ -789,6 +1014,7 @@ void ladder_upsum(cudaStream_t st, float* y, float* ping, P* pyr, float* folds,
   }
 
   // y is dead after the ladder: the upsample-sum reuses it for acc
+  const dim3 rows(Ci, B);
   const size_t sab = 2 * (size_t)depth * sizeof(float);
   if (T % CHUNK == 0)
     upsum_kernel<true, P><<<rows, NT, sab, st>>>(pyr, folds, depth, T, Ci, B, y, part);
@@ -807,6 +1033,16 @@ long long uconv_workspace_floats(int B, int Co, int Ci, int T, int depth, int py
 
 const char* cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
+}
+
+// The work a warp of the ladder's level of `rows` (B * Ci) rows and `tout`
+// outputs takes (ladder_work): its rows, and its time tile's outputs.
+// Returns the time tiles a row.
+int ladder_tiles(int rows, int tout, int* warp_rows, int* tile) {
+  const LadderWork lw = ladder_work(rows, tout);
+  *warp_rows = lw.group;
+  *tile = lw.tile;
+  return cdiv(tout, lw.tile);
 }
 
 // One U-ConvBlock forward on `stream`. x, out: (B, Co, T); proj_w (Ci, Co);
@@ -836,8 +1072,9 @@ int uconv_block_forward(
   // one thread a value of the larger weight's plane, at most 1024 blocks
   const size_t wplane = std::max(split_floats(Ci, Co), split_floats(Co, Ci)) / 2;
   const int sblocks = (int)std::min<size_t>(wplane / NT + 1, 1024);
+  int* counter = reinterpret_cast<int*>(work + L.cnt);
   split_kernel<<<dim3(sblocks, 2), NT, 0, st>>>(proj_w, Ci, Co, work + L.sp, res_w,
-                                                 Co, Ci, work + L.sr);
+                                                 Co, Ci, work + L.sr, counter, B);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   if ((err = gemm<false>(st, work + L.sp, x, proj_b, nullptr, nullptr, nullptr,
@@ -848,10 +1085,10 @@ int uconv_block_forward(
 
   if (pyramid_bf16)
     ladder_upsum(st, y, work + L.ping, reinterpret_cast<__nv_bfloat16*>(work + L.pyr), folds,
-                 part, proj_slope, dw_w, dw_b, dw_g, dw_beta, B, Ci, T, depth, eps);
+                 part, counter, proj_slope, dw_w, dw_b, dw_g, dw_beta, B, Ci, T, depth, eps);
   else
-    ladder_upsum(st, y, work + L.ping, work + L.pyr, folds, part, proj_slope, dw_w, dw_b,
-                 dw_g, dw_beta, B, Ci, T, depth, eps);
+    ladder_upsum(st, y, work + L.ping, work + L.pyr, folds, part, counter, proj_slope, dw_w,
+                 dw_b, dw_g, dw_beta, B, Ci, T, depth, eps);
   fold_kernel<<<B, NT, 0, st>>>(part, Ci, final_g, final_beta, Ci, eps,
                                 fa(depth + 1), fb(depth + 1));
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

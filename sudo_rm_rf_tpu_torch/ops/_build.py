@@ -75,6 +75,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.uconv_workspace_floats.restype = ctypes.c_longlong
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p
+    lib.ladder_tiles.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.ladder_tiles.restype = i32
     lib.uconv_block_forward.argtypes = (
         [ptr] * 17 + [i32] * 5 + [ctypes.c_float, i32, ptr])
     lib.uconv_block_forward.restype = i32

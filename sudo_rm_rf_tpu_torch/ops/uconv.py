@@ -11,9 +11,10 @@ see :func:`uconv_block_reference`) and (B, C, T) layout:
   (the int8 serving path's);
 * :func:`uconv_block_levelwise` — the exact decomposition the CUDA kernel
   carries out (3xTF32 GEMMs, per-tile statistics merged with Chan's formula,
-  level-wise folding, the closed-form upsample-sum with per-chunk
-  statistics), in plain torch, so the CPU tests check the kernel's algorithm;
-  fp32 in and out, with an fp32 or bf16 pyramid;
+  level-wise folding from the ladder's partials per (rows, time tile) of
+  :func:`ladder_work`, the closed-form upsample-sum with per-chunk
+  statistics), in plain torch, so the CPU tests check the kernel's
+  algorithm; fp32 in and out, with an fp32 or bf16 pyramid;
 * :func:`fused_uconv_block` — the wrapper of the hand-written Hopper kernel
   ``csrc/uconv.cu``: forward only, fp32 in and out, with an fp32 or bf16
   pyramid (the TPU kernel's ``pyramid_dtype``).
@@ -46,6 +47,15 @@ GEMM_TILE = (64, 64)
 # outputs of the upsample-sum whose exact (mean, M2) one thread takes before
 # merging (CHUNK in csrc/uconv.cu)
 UPSUM_CHUNK = 8
+# the ladder's work a warp (csrc/uconv.cu: LANE_OUT, PASS, MAX_TILE,
+# MIN_WORK, FILL): the outputs a lane takes in one pass, a warp's pass, the
+# longest time tile, the outputs a warp should take, and the warps a level
+# should fill the card with
+LADDER_LANE = 8
+LADDER_PASS = 32 * LADDER_LANE
+LADDER_MAX_TILE = 64 * LADDER_PASS
+LADDER_MIN_WORK = 4 * LADDER_PASS
+LADDER_FILL = 4096
 
 
 def _prelu(v, slope):
@@ -273,15 +283,33 @@ def _fold(v, gamma, beta, rows: int, cols: int):
     return (a[:, :, None], (beta[None, :] - a * mu)[:, :, None])
 
 
+def ladder_work(rows: int, tout: int) -> tuple:
+    """(rows, time tile) that one warp of the kernel's ladder takes at a
+    level of ``rows`` (B * Ci) rows and ``tout`` outputs a row: the kernel's
+    ``ladder_work``, which the library exports as ``ladder_tiles``. A row is
+    cut into at least cdiv(tout, LADDER_MAX_TILE) tiles, and into up to
+    cdiv(LADDER_FILL, rows) where the rows alone leave the card short of
+    warps, none shorter than one pass; the tile is a multiple of
+    ``LADDER_LANE``. Where whole rows are shorter than ``LADDER_MIN_WORK``
+    and the level has warps to spare, a warp takes several rows."""
+    cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    fill = min(cdiv(LADDER_FILL, rows), cdiv(tout, LADDER_PASS))
+    tiles = max(cdiv(tout, LADDER_MAX_TILE), fill)
+    tile = cdiv(cdiv(tout, tiles), LADDER_LANE) * LADDER_LANE
+    group = 1 if tile < tout else max(1, min(cdiv(LADDER_MIN_WORK, tout), rows // LADDER_FILL))
+    return group, tile
+
+
 def uconv_block_levelwise(x, params, depth: int, pyramid_dtype=torch.float32):
     """The CUDA kernel's decomposition of the block, in plain torch.
 
     proj GEMM in 3xTF32 (partials per ``GEMM_TILE`` sub-tile) -> per level
     k: input transform (level 0: prelu(a*y + b); k >= 1: a_{k-1}*raw_{k-1} +
     b_{k-1}), depthwise k=5 conv y[t] = sum_j w[j] x[s*t + j - 2], raw_k and
-    per-row partials -> acc = sum_k (a_k raw_k[t >> k] + b_k) with partials
-    per ``UPSUM_CHUNK`` outputs -> res GEMM in 3xTF32 over prelu(a_f*acc +
-    b_f) plus bias and residual.
+    partials per (rows, time tile) of :func:`ladder_work` -> acc =
+    sum_k (a_k raw_k[t >> k] + b_k) with partials per ``UPSUM_CHUNK``
+    outputs -> res GEMM in 3xTF32 over prelu(a_f*acc + b_f) plus bias and
+    residual.
 
     pyramid_dtype: the type the levels are stored in (the TPU kernel's
     argument of that name). With bf16, as there, each level's statistics
@@ -289,6 +317,7 @@ def uconv_block_levelwise(x, params, depth: int, pyramid_dtype=torch.float32):
     reads the stored levels, rounded to bf16 (nearest even) and upcast.
     """
     t = x.shape[-1]
+    rows = x.shape[0] * params["proj_w"].shape[0]
     y = matmul_3xtf32(params["proj_w"], x) + params["proj_b"][None, :, None]
     a, b = _fold(y, params["proj_g"], params["proj_beta"], *GEMM_TILE)
     cur = _prelu(a * y + b, params["proj_slope"])
@@ -302,7 +331,7 @@ def uconv_block_levelwise(x, params, depth: int, pyramid_dtype=torch.float32):
         w = params["dw_w"][k]
         o = sum(w[None, :, j : j + 1] * xp[..., j : j + s * tk : s] for j in range(5))
         o = o + params["dw_b"][k][None, :, None]
-        a, b = _fold(o, params["dw_g"][k], params["dw_beta"][k], 1, tk)
+        a, b = _fold(o, params["dw_g"][k], params["dw_beta"][k], *ladder_work(rows, tk))
         raw.append(o)
         folds.append((a, b))
     acc = sum(
@@ -390,12 +419,29 @@ def fused_uconv_block(x, params, depth: int = 5, pyramid_dtype=torch.float32):
     fused_uconv_block.launches += 1
     if bf16:
         fused_uconv_block.launches_bf16_pyramid += 1
+    fused_uconv_block.ladder_levels_tiled += _tiled_levels(lib, b * ci, t, depth)
     return out
 
 
-# launches of the kernel, all of them and those with a bf16 pyramid
+# launches of the kernel, all of them and those with a bf16 pyramid; the
+# ladder levels they ran with more than one time tile a row
 fused_uconv_block.launches = 0
 fused_uconv_block.launches_bf16_pyramid = 0
+fused_uconv_block.ladder_levels_tiled = 0
+
+
+def ladder_tiles(lib, rows: int, tout: int) -> tuple:
+    """(time tiles a row, rows a warp, tile) of a ladder level, from the
+    library's own chooser (``ladder_tiles`` in csrc/uconv.cu)."""
+    warp_rows, tile = ctypes.c_int(), ctypes.c_int()
+    tiles = lib.ladder_tiles(rows, tout, ctypes.byref(warp_rows), ctypes.byref(tile))
+    return tiles, warp_rows.value, tile.value
+
+
+@functools.lru_cache(maxsize=None)
+def _tiled_levels(lib, rows: int, t: int, depth: int) -> int:
+    """Ladder levels of a call that run with more than one time tile a row."""
+    return sum(ladder_tiles(lib, rows, t >> k)[0] > 1 for k in range(depth))
 
 
 def params_from_module(block) -> dict:

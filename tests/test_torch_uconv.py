@@ -87,17 +87,43 @@ def test_port_block_matches_jax(form, depth, t, ci, co):
 
 def test_levelwise_fold_equals_glob_ln():
     """Per-tile moments on ragged tiles, merged with Chan's formula, give
-    the GlobLN of the whole plane."""
+    the GlobLN of the whole plane; among the tiles the ladder's (row, time
+    tile), which cuts these 1,000-step rows into four."""
     from sudo_rm_rf_tpu_torch.ops.norm import glob_ln
 
     rng = np.random.default_rng(3)
-    v = torch.from_numpy((rng.standard_normal((3, 36, 81)) * 4 + 7).astype(np.float32))
+    v = torch.from_numpy((rng.standard_normal((3, 36, 1000)) * 4 + 7).astype(np.float32))
     g = torch.from_numpy(rng.uniform(0.5, 1.5, 36).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal(36).astype(np.float32))
     want = glob_ln(v, g, b)
-    for rows, cols in [(128, 64), (1, 81), (16, 32), U.GEMM_TILE, (1, U.UPSUM_CHUNK)]:
+    ladder = U.ladder_work(3 * 36, 1000)
+    assert ladder[0] == 1 and -(-1000 // ladder[1]) == 4
+    for rows, cols in [(128, 64), (1, 1000), (1, 81), (16, 32), (5, 1000), U.GEMM_TILE,
+                       (1, U.UPSUM_CHUNK), ladder]:
         a, sh = U._fold(v, g, b, rows, cols)
         torch.testing.assert_close(a * v + sh, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,tout,warp_rows,tiles", [
+    (32 * 512, 3200, 1, 1),     # the flagship block at bs32: a row a warp
+    (32 * 512, 200, 4, 1),      # its deepest level: four short rows a warp
+    (8 * 512, 3200, 1, 1),      # at bs8, the recordings cell's batch
+    (4 * 512, 6400, 1, 2),      # U36 at bs4: too few rows to fill the card
+    (64 * 32, 200, 1, 1),       # GroupComm's folded deepest level: a pass a row
+    (512, 480000, 1, 30),       # the 10-minute block: rows cut at MAX_TILE
+    (512, 30000, 1, 8),         # its deepest level: cut to fill the card
+    (72, 81, 1, 1),             # a ragged toy level
+])
+def test_ladder_work_cuts_by_rows_and_length(rows, tout, warp_rows, tiles):
+    """The ladder's chooser: a tile that is a multiple of a lane's outputs,
+    no longer than MAX_TILE and no shorter than a pass unless the row is;
+    several rows a warp only where a row is one tile; and the layouts the
+    kernel runs the serving and long-form shapes with."""
+    group, tile = U.ladder_work(rows, tout)
+    assert tile % U.LADDER_LANE == 0 and tile <= U.LADDER_MAX_TILE
+    assert tile >= min(U.LADDER_PASS, tout)
+    assert group == 1 or tile >= tout
+    assert (group, -(-tout // tile)) == (warp_rows, tiles)
 
 
 def test_params_from_module_matches_params_from_flax():
