@@ -225,22 +225,27 @@ def groupcomm_forward_fast(model, input_wav: torch.Tensor, impl: str = None,
     * 'fma': ``uconv_block_fma`` on the folded layout;
     * 'xla': ``uconv_block_reference`` on the folded layout.
     """
-    if impl is None:
-        impl = "kernel" if input_wav.is_cuda else "fma_merged"
-    if impl not in GC_IMPLS:
-        raise ValueError(f"impl {impl!r} not in {GC_IMPLS}")
-    block = _block_fn(impl, pyramid_dtype)
-    model = cast_model(model, compute_dtype, impl)
-    x, s, in_len = _encode(model, input_wav, _dtype(compute_dtype))
-    b, c, t = x.shape
-    g, depth = model.group_size, model.upsampling_depth
-    bd_mm = _make_bd_mm(b, g) if impl == "fma_bd" else None
-    tac_mms = (bd_mm, torch.matmul, bd_mm) if bd_mm is not None else None
-    for blk in model.sm:
-        y = _tac_fast(blk.TAC, x.reshape(b, g, c // g, t), matmuls=tac_mms)
-        kp = params_from_module(blk.UBlock)
-        if impl in ("fma_merged", "fma_bd"):
-            x = gc_uconv_block_fma_merged(y.reshape(b, c, t), kp, depth, g, matmul=bd_mm)
-        else:
-            x = block(y.reshape(b * g, c // g, t), kp, depth).reshape(b, c, t)
-    return _decode(model, x, s, in_len, model.num_sources * model.in_audio_channels)
+    with tracing.span("forward", rows=input_wav.shape[0]):
+        if impl is None:
+            impl = "kernel" if input_wav.is_cuda else "fma_merged"
+        if impl not in GC_IMPLS:
+            raise ValueError(f"impl {impl!r} not in {GC_IMPLS}")
+        block = _block_fn(impl, pyramid_dtype)
+        with tracing.span("forward.encode"):
+            model = cast_model(model, compute_dtype, impl)
+            x, s, in_len = _encode(model, input_wav, _dtype(compute_dtype))
+        b, c, t = x.shape
+        g, depth = model.group_size, model.upsampling_depth
+        bd_mm = _make_bd_mm(b, g) if impl == "fma_bd" else None
+        tac_mms = (bd_mm, torch.matmul, bd_mm) if bd_mm is not None else None
+        for blk in model.sm:
+            with tracing.span("forward.tac"):
+                y = _tac_fast(blk.TAC, x.reshape(b, g, c // g, t), matmuls=tac_mms)
+            with tracing.span("forward.block"):
+                kp = params_from_module(blk.UBlock)
+                if impl in ("fma_merged", "fma_bd"):
+                    x = gc_uconv_block_fma_merged(y.reshape(b, c, t), kp, depth, g, matmul=bd_mm)
+                else:
+                    x = block(y.reshape(b * g, c // g, t), kp, depth).reshape(b, c, t)
+        with tracing.span("forward.decode"):
+            return _decode(model, x, s, in_len, model.num_sources * model.in_audio_channels)
