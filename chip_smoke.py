@@ -25,7 +25,13 @@
    device time of each of K1's parts (``torch.profiler``), K1's bound, and
    the ``torch.matmul`` time of the
    same two products (TF32 off, and labelled, on), a yardstick the port
-   never calls.
+   never calls. Then TAC's kernel (``tac``: ``ops/tac.py::fused_tac``,
+   ``csrc/tac.cu``) against its plain version at the gc-u16-batch32 cell's
+   TAC (32, 16, 16, 3200), the 10-minute pass's (1, 16, 16, 480000; three
+   launches) and narrow and wide groups with odd lengths, within rtol 1e-4,
+   atol 1e-5, two calls bit-identical; at the first two, its time and each
+   pass's device time beside its floors, the plain version's time and the
+   ``torch.matmul`` time of its three products.
 4. The serving path: ``sudo-torch-separate`` with a seeded random Improved
    SuDoRM-RF U16/512 checkpoint on three synthetic 8 kHz wavs (3 s, 10 s,
    25 s), batch 4. Checks the outputs, that the kernel ran 16 times per
@@ -428,6 +434,13 @@ LONGFORM_BLOCK = (1, 256, 512, int(LONGFORM_SECONDS * FS) // 10, 5)
 LADDER_SHAPES = [(32, 256, 512, 3200, 5), U36_BLOCK, GC_BLOCK, (8, 256, 512, 3216, 5),
                  LONGFORM_BLOCK]
 HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12  # the fp32 pipes, outside the tensor cores
+# (B, G, n, T) of TAC's kernel checks: the gc-u16-batch32 cell's TAC, the
+# 10-minute pass's (7,500 tiles a plane: the fold launch), narrow and wide
+# groups with T past a whole tile and odd; the first two are timed
+TAC_SHAPES = [(32, 16, 16, 3200), (1, 16, 16, int(LONGFORM_SECONDS * FS) // 10), (3, 8, 4, 1037),
+              (2, 4, 8, 777), (2, 8, 32, 1001)]
+TAC_TIMED = TAC_SHAPES[:2]
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 25) -> float:
@@ -466,7 +479,7 @@ def device_ms_by_kernel(torch, fn, calls: int, by_part: bool = True,
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA or e.duration_ns() <= 0:
             continue
-        m = re.search(r"(%s)_kernel" % "|".join(K1_PARTS), e.name())
+        m = re.search(r"\b(%s)_kernel\b" % "|".join(K1_PARTS), e.name())
         name = (m.group(1) if m else "other") if by_part else e.name()
         out[name] = out.get(name, 0.0) + e.duration_ns() / 1e6 / calls
         if launches is not None:
@@ -689,6 +702,7 @@ def serve_phase(torch, np, tmp: str, model_type: str, hp: dict, extra_argv=(),
     from sudo_rm_rf_tpu_torch.inference import separate_file
     from sudo_rm_rf_tpu_torch.models import fast_inference as fi
     from sudo_rm_rf_tpu_torch.ops import uconv as U
+    from sudo_rm_rf_tpu_torch.ops.tac import fused_tac
 
     gc = model_type == "groupcomm_v2"
     forward = fi.groupcomm_forward_fast if gc else fi.improved_forward_fast
@@ -717,20 +731,21 @@ def serve_phase(torch, np, tmp: str, model_type: str, hp: dict, extra_argv=(),
             *(w for w, _ in wavs), "--out_dir", out_dir, "--device", device,
             "--batch_chunks", str(BATCH), "-fs", str(FS),
             "--chunk_seconds", str(CHUNK_SECONDS), *hp_argv(hp), *extra_argv]
-    # the serving path, with the kernel count at 0 just before it
-    U.fused_uconv_block.launches = 0
+    # the serving path, with the kernel counts at 0 just before it
+    U.fused_uconv_block.launches = fused_tac.launches = 0
     t0 = time.perf_counter()
     if separate_main(argv) != 0:
         raise RuntimeError("sudo-torch-separate returned non-zero")
     if device == "cuda":
         torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = U.fused_uconv_block.launches
+    launches, tac_launches = U.fused_uconv_block.launches, fused_tac.launches
     want = hp["num_blocks"] * batches if device == "cuda" else 0
     print(f"CLI {model_type}: {len(wavs)} files, {batches} forward batches, "
-          f"{launches} kernel launches, {cli_s:.2f} s")
-    if launches != want:
-        raise RuntimeError(f"expected {want} kernel launches, counted {launches}")
+          f"{launches} kernel launches, {tac_launches} TAC kernel launches, {cli_s:.2f} s")
+    if launches != want or tac_launches != 2 * want * gc:
+        raise RuntimeError(f"expected {want} kernel launches and {2 * want * gc} TAC kernel "
+                           f"launches, counted {launches} and {tac_launches}")
     for path, n in wavs:
         stem = os.path.splitext(os.path.basename(path))[0]
         for s in (1, 2):
@@ -770,7 +785,8 @@ def serve_phase(torch, np, tmp: str, model_type: str, hp: dict, extra_argv=(),
     print(f"{tag} bs{BATCH} fp32 forward fidelity kernel vs xla: {fid:.2f} dB")
     if not fid >= MIN_FIDELITY_DB:
         raise RuntimeError(f"fidelity {fid:.2f} dB < {MIN_FIDELITY_DB} dB")
-    out = dict(launches=launches, forward_batches=batches, launches_per_forward=per_forward,
+    out = dict(launches=launches, tac_launches=tac_launches, forward_batches=batches,
+               launches_per_forward=per_forward,
                cli_s=cli_s, cli_vs_plain_lsb=max(lsbs), fidelity_db=fid)
     if device != "cuda":
         return out
@@ -798,7 +814,7 @@ def serve_phase(torch, np, tmp: str, model_type: str, hp: dict, extra_argv=(),
     named = device_ms_by_kernel(torch, lambda: forward(model, x, impl="kernel"), 5,
                                 by_part=False, launches=named_counts)
     top = sorted(((k, v) for k, v in named.items()
-                  if not re.search(r"(%s)_kernel" % "|".join(K1_PARTS), k)),
+                  if not re.search(r"\b(%s)_kernel\b" % "|".join(K1_PARTS), k)),
                  key=lambda kv: -kv[1])[:8]
     print(f"{tag} bs{BATCH} kernel forward, top 8 kernels outside K1 by device ms a "
           f"forward (launches): " + "; ".join(
@@ -1152,7 +1168,7 @@ def eval_phase(torch, np, tmp: str, hp: dict, device: str = "cuda",
                                 3, by_part=False, launches=counts)
     busy = sum(named.values())
     k1_ms = sum(v for k, v in named.items()
-                if re.search(r"(%s)_kernel" % "|".join(K1_PARTS), k))
+                if re.search(r"\b(%s)_kernel\b" % "|".join(K1_PARTS), k))
     top = sorted(named.items(), key=lambda kv: -kv[1])[:8]
     print(f"{tag} bs{BATCH} kernel forward (torch.profiler, 3 forwards): device busy "
           f"{busy:.3f} of {fwd['kernel']['ms']:.3f} ms, idle {1 - busy / fwd['kernel']['ms']:.1%}, "
@@ -2984,6 +3000,109 @@ def k1_long_check(torch, U, lib, shape=LONGFORM_BLOCK) -> dict:
                 parts_ms={k: parts.get(k) for k in K1_PARTS})
 
 
+def tac_module(torch, n: int, seed: int, device: str = "cuda"):
+    """A seeded TAC module of n channels a group, its slopes, gains and
+    shifts drawn around their init."""
+    from sudo_rm_rf_tpu_torch.models.groupcomm_sudormrf import TAC
+
+    g = torch.Generator().manual_seed(seed)
+    tac = TAC(n, 3 * n, generator=g).eval()
+    with torch.no_grad():
+        for name, p in tac.named_parameters():
+            if name.endswith(("gamma", "beta")) or p.numel() == 1:
+                p.add_(0.1 * (2 * torch.rand(p.shape, generator=g) - 1))
+    return tac.to(device)
+
+
+def tac_floors_ms(b: int, g: int, n: int, t: int) -> dict:
+    """Least ms of TAC's passes: bytes (each fp32 input read once, each
+    output written once, at 3.35 TB/s) and the mix pass's arithmetic on the
+    fp32 pipes, once (y kept) and with y computed twice (the kernel's)."""
+    h, xb = 3 * n, 4 * b * g * n * t
+    flops = 2 * b * t * (g * 2 * h * n + h * h + n * h)
+    return dict(mix_bytes=1e3 * 2 * xb / HBM_BYTES_PER_S, norm_bytes=1e3 * 3 * xb / HBM_BYTES_PER_S,
+                tac_bytes=1e3 * 5 * xb / HBM_BYTES_PER_S,
+                mix_flops=1e3 * flops / FP32_FLOPS_PER_S,
+                mix_flops_recompute=1e3 * (flops + 2 * b * t * g * h * n) / FP32_FLOPS_PER_S)
+
+
+def tac_check(torch, lib) -> dict:
+    """TAC's kernel (``ops/tac.py::fused_tac``, ``csrc/tac.cu``) against its
+    plain version (``tac_plain``, ``_tac_fast``'s arithmetic) on the card at
+    TAC_SHAPES within rtol 1e-4, atol 1e-5; two calls bit-identical; its
+    launches a call (2, or 3 with the fold launch). At TAC_TIMED: its time
+    (CUDA events), each pass's device time (``torch.profiler``) beside its
+    floors, the plain version's time, and the ``torch.matmul`` time of its
+    three products (W_in x, W_oy y, W_mean mean), a yardstick the port never
+    calls."""
+    from sudo_rm_rf_tpu_torch.ops import tac as T
+
+    rows = {}
+    for shape in TAC_SHAPES:
+        b, g, n, t = shape
+        tac = tac_module(torch, n, seed=n)
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(1)).cuda()
+        tiles = lib.tac_tiles(t)
+        label = f"TAC {shape}"
+        with torch.no_grad():
+            before = T.fused_tac.launches
+            got = T.fused_tac(tac, x)
+            torch.cuda.synchronize()
+            launches = T.fused_tac.launches - before
+            want = T.tac_plain(tac, x)
+            diff = (got - want).abs()
+            err = diff.max().item()
+            outside = int((diff > 1e-5 + 1e-4 * want.abs()).sum())
+            same = torch.equal(got, T.fused_tac(tac, x))
+        print(f"{label}: vs tac_plain max_abs_err {err:.3e}, {outside} of {diff.numel()} "
+              f"outputs outside rtol 1e-4 atol 1e-5; {launches} launches a call ({tiles} tiles "
+              f"a plane); two calls {'bit-identical' if same else 'differ'}")
+        if outside or not same or launches != (3 if tiles > 256 else 2):
+            raise RuntimeError(f"{label}: {outside} outside, bit-identical {same}, "
+                               f"{launches} launches with {tiles} tiles")
+        row = dict(shape=f"B,G,n,T={b},{g},{n},{t}", max_abs_err=err, outside_tol=outside,
+                   launches=launches, tiles=tiles, bit_identical=True)
+        del got, want, diff
+        if shape in TAC_TIMED:
+            with torch.no_grad():
+                call = lambda: T.fused_tac(tac, x)  # noqa: E731
+                ms = time_ms(torch, call, warmup=3, reps=20)
+                by_name = device_ms_by_kernel(torch, call, 10, by_part=False)
+                passes = {}
+                for name, v in by_name.items():
+                    m = re.search(r"\btac_(mix|fold|norm)_kernel\b", name)
+                    key = m.group(1) if m else "other"
+                    passes[key] = passes.get(key, 0.0) + v
+                plain_ms = time_ms(torch, lambda: T.tac_plain(tac, x), warmup=1, reps=5)
+                h = 3 * n
+                w_in, w_mean = tac.TAC_input[0].weight, tac.TAC_mean[0].weight
+                w_oy = tac.TAC_output[0].weight[:, :h]
+                y = torch.randn(b * g, h, t, device="cuda")
+                mean = torch.randn(b, h, t, device="cuda")
+                xf = x.view(b * g, n, t)
+                lib_ms = time_ms(torch, lambda: (torch.matmul(w_in, xf), torch.matmul(w_oy, y),
+                                                 torch.matmul(w_mean, mean)), warmup=2, reps=10)
+                del y, mean
+            floors = tac_floors_ms(b, g, n, t)
+            print(f"{label}: {ms:.4f} ms a call (CUDA events, median of 20), floor "
+                  f"{floors['tac_bytes']:.4f} ms of bytes ({floors['tac_bytes'] / ms:.1%} of "
+                  f"HBM bandwidth); device ms a call by pass (torch.profiler, 10 calls): "
+                  + (", ".join(f"{k} {v:.4f}" for k, v in sorted(passes.items()))
+                     or "not measured (no device time in the trace)")
+                  + f"; mix floors {floors['mix_bytes']:.4f} ms of bytes, "
+                  f"{floors['mix_flops']:.4f} ms of fp32 arithmetic "
+                  f"({floors['mix_flops_recompute']:.4f} with y computed twice), norm floor "
+                  f"{floors['norm_bytes']:.4f} ms of bytes; plain (tac_plain) {plain_ms:.3f} "
+                  f"ms; torch.matmul of its three products {lib_ms:.4f} ms")
+            row.update(ms=ms, pass_ms=passes, floors_ms=floors, plain_ms=plain_ms,
+                       library_ms=lib_ms,
+                       library_call="torch.matmul of W_in x, W_oy y and W_mean mean")
+        rows[",".join(map(str, shape))] = row
+        del tac, x
+        torch.cuda.empty_cache()
+    return rows
+
+
 def longform_phase(torch, np, tmp: str, seed: int = 0, device: str = "cuda",
                    families: dict | None = None, seconds: float = LONGFORM_SECONDS,
                    cli_seconds: float = LONGFORM_CLI_SECONDS,
@@ -3120,7 +3239,7 @@ def longform_phase(torch, np, tmp: str, seed: int = 0, device: str = "cuda",
                     parts = device_ms_by_kernel(torch, call, 1)
                     named = device_ms_by_kernel(torch, call, 1, by_part=False)
                     top = sorted(((k, v) for k, v in named.items() if not re.search(
-                        r"(%s)_kernel" % "|".join(K1_PARTS), k)), key=lambda kv: -kv[1])[:6]
+                        r"\b(%s)_kernel\b" % "|".join(K1_PARTS), k)), key=lambda kv: -kv[1])[:6]
                     busy = sum(parts.values())
                     rows[label].update(device_ms=parts, busy_ms=busy,
                                        idle_share=1 - busy / (1e3 * secs),
@@ -3789,7 +3908,7 @@ def tools_phase(torch, np, tmp: str, resident: dict, device: str = "cuda",
     return out
 
 
-PHASES = ("k1", "k1_bf16", "float64", "serve", "train", "evaluate", "recipes", "augmented",
+PHASES = ("k1", "tac", "k1_bf16", "float64", "serve", "train", "evaluate", "recipes", "augmented",
           "bf16", "int8", "bench", "causal", "zoo", "zoo_cli", "baselines", "musdb",
           "longform", "parallel", "resident", "tools")
 
@@ -3836,7 +3955,7 @@ def main(argv=None) -> int:
     if log.exists():  # registers, shared memory and spills of each kernel
         name = None
         for line in log.read_text().splitlines():
-            m = re.search(r"Compiling entry function .*?([a-z]+_kernel)((?:L[a-z]\d+E|I)*)", line)
+            m = re.search(r"Compiling entry function .*?([a-z_]+_kernel)((?:L[a-z]\d+E|I)*)", line)
             if m:  # template arguments, as in gemm_kernel<2,1,1>
                 args_ = re.findall(r"L[a-z](\d+)E", m.group(2))
                 name = m.group(1) + (f"<{','.join(args_)}>" if args_ else "")
@@ -3864,6 +3983,7 @@ def main(argv=None) -> int:
     phase("k1", lambda: dict(k1_phase(torch, U, _build.load_kernels(), hmma),
                              wide=k1_wide_check(torch, U),
                              ladder=k1_ladder_check(torch, U, _build.load_kernels())))
+    phase("tac", lambda: tac_check(torch, _build.load_kernels()))
     phase("k1_bf16", lambda: k1_bf16_phase(torch, U))
     phase("float64", lambda: k1_float64_phase(torch, U))
 
@@ -4110,6 +4230,12 @@ def main(argv=None) -> int:
         **pyr["flagship"], "gc_shape": pyr["groupcomm"], "u36_shape": pyr["u36"],
         "wide_shape": {b: r for b, r in k1["wide"].items() if r["pyramid"] == "bf16"},
         "ladder_shapes": {n: r for n, r in k1["ladder"].items() if r["pyramid"] == "bf16"},
+    }, {
+        "name": "fused_tac", "route": "cuda", "source": "sudo_rm_rf_tpu_torch/csrc/tac.cu",
+        "replaces": None,  # the JAX package runs TAC in plain XLA
+        "launches_gc_cli": serve["groupcomm_v2"]["tac_launches"],
+        "launches_relu_cli": serve["relu"]["tac_launches"],
+        "shapes": res["tac"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

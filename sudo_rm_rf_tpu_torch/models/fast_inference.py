@@ -20,6 +20,7 @@ import torch
 
 from sudo_rm_rf_tpu_torch import ops
 from sudo_rm_rf_tpu_torch.models.groupcomm_sudormrf import _tac_fast, gc_uconv_block_fma_merged
+from sudo_rm_rf_tpu_torch.ops.tac import TAC_MAX_N
 from sudo_rm_rf_tpu_torch.ops.uconv import (
     fused_uconv_block,
     params_from_module,
@@ -211,12 +212,14 @@ def groupcomm_forward_fast(model, input_wav: torch.Tensor, impl: str = None,
     fp32. Returns (B, S*C_audio, T) fp32. compute_dtype and pyramid_dtype:
     as :func:`improved_forward_fast`'s.
 
-    Each block is the bandwidth-shaped TAC (:func:`_tac_fast`) and then the
-    shared U-ConvBlock in the form ``impl`` names:
+    Each block is TAC (:func:`_tac_fast`) and then the shared U-ConvBlock
+    in the form ``impl`` names:
 
-    * 'kernel' (the default on a CUDA tensor): the CUDA U-ConvBlock kernel
-      on the group-folded (B*G, C/G, T) layout, whose per-row GlobLN is
-      then per (batch, group);
+    * 'kernel' (the default on a CUDA tensor): TAC by the hand-written
+      kernel (``ops.tac.fused_tac``) where the stream is fp32 and a group
+      at most ``TAC_MAX_N`` channels wide, else the bandwidth-shaped plain
+      TAC; the CUDA U-ConvBlock kernel on the group-folded (B*G, C/G, T)
+      layout, whose per-row GlobLN is then per (batch, group);
     * 'fma_merged' (the default on the CPU): groups merged into the channel
       axis (:func:`gc_uconv_block_fma_merged`);
     * 'fma_bd': 'fma_merged' with every shared per-group projection (TAC in
@@ -239,8 +242,12 @@ def groupcomm_forward_fast(model, input_wav: torch.Tensor, impl: str = None,
         bd_mm = _make_bd_mm(b, g) if impl == "fma_bd" else None
         tac_mms = (bd_mm, torch.matmul, bd_mm) if bd_mm is not None else None
         for blk in model.sm:
-            with tracing.span("forward.tac"):
-                y = _tac_fast(blk.TAC, x.reshape(b, g, c // g, t), matmuls=tac_mms)
+            # the hand-written TAC takes an fp32 stream of groups up to
+            # TAC_MAX_N channels wide; a bf16 stream (the first block's under
+            # compute_dtype) or wider groups run the plain TAC
+            fused = impl == "kernel" and x.dtype == torch.float32 and c // g <= TAC_MAX_N
+            with tracing.span("forward.tac", fused=int(fused)):
+                y = _tac_fast(blk.TAC, x.reshape(b, g, c // g, t), matmuls=tac_mms, fused=fused)
             with tracing.span("forward.block"):
                 kp = params_from_module(blk.UBlock)
                 if impl in ("fma_merged", "fma_bd"):

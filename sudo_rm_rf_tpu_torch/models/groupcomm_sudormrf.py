@@ -34,6 +34,7 @@ from sudo_rm_rf_tpu_torch.models.layers import (
     default_generator,
     xavier_uniform_conv,
 )
+from sudo_rm_rf_tpu_torch.ops.tac import fused_tac, tac_plain
 from sudo_rm_rf_tpu_torch.ops.uconv import EPS, dw_conv_s1, dw_conv_s2, params_from_module
 
 
@@ -146,52 +147,19 @@ def gc_uconv_block_fma_merged(x, kp, depth: int, g: int, matmul=None):
     return out.reshape(b, c_out, t) + x
 
 
-def _tac_fast(tac, x, matmuls=None):
+def _tac_fast(tac, x, matmuls=None, fused: bool = False):
     """TAC over (B, G, N, T) with a ``groupcomm_sudormrf.TAC`` module's
-    params, as explicit channel matmuls.
-
-    Bandwidth-shaped rewrite of the module's math (same values): instead of
-    broadcasting the group mean to (B, G, H, T) and concatenating to
-    (B, G, 2H, T) before the output linear, split W_out = [W_oy | W_om]
-    along its input axis and compute W_oy y + (W_om m)[:, None]: the mean
-    branch stays (B, H, T) until the final add.
-
-    matmuls: optional (mm_in, mm_mean, mm_out) channel-matmul hooks, each
-    ``mm(w (O, C), v (B', C, T))``.
-
-    Runs in x's dtype (bf16 with fp32 GlobLN statistics, or fp32); weights
-    and biases in another dtype are cast to it, as JAX promotes a narrower
-    weight (a 'kernel' serving copy holds bf16-rounded weights in fp32).
-    """
+    params: :func:`ops.tac.tac_plain` (channel matmuls with the optional
+    ``matmuls`` hooks, in x's dtype), or with ``fused`` the hand-written
+    kernel :func:`ops.tac.fused_tac` (fp32 x, no hooks). Counts every call
+    in ``_tac_fast.calls``, whichever computes it."""
     _tac_fast.calls += 1
-    b, g, n, t = x.shape
-    dt = x.dtype
-    mm_in, mm_mean, mm_out = matmuls if matmuls is not None else (torch.matmul,) * 3
-
-    def prelu(act, v):
-        return torch.where(v >= 0, v, act.weight[0] * v)
-
-    lin_in, act_in = tac.TAC_input
-    lin_mean, act_mean = tac.TAC_mean
-    lin_out, act_out = tac.TAC_output
-    y = mm_in(lin_in.weight.to(dt), x.reshape(b * g, n, t))
-    h = y.shape[1]
-    y = prelu(act_in, y.reshape(b, g, h, t) + lin_in.bias.to(dt)[None, None, :, None])
-    mean = y.mean(dim=1)
-    mean = prelu(act_mean, mm_mean(lin_mean.weight.to(dt), mean)
-                 + lin_mean.bias.to(dt)[None, :, None])
-    w_out = lin_out.weight.to(dt)  # (N, 2H)
-    out = (
-        mm_out(w_out[:, :h], y.reshape(b * g, h, t)).reshape(b, g, n, t)
-        + torch.matmul(w_out[:, h:], mean)[:, None]
-        + lin_out.bias.to(dt)[None, None, :, None]
-    )
-    out = prelu(act_out, out)
-    out = ops.glob_ln(out.reshape(b * g, n, t), tac.TAC_norm.gamma, tac.TAC_norm.beta)
-    return x + out.reshape(b, g, n, t)
+    if fused:
+        return fused_tac(tac, x)
+    return tac_plain(tac, x, matmuls)
 
 
-# calls of the TAC above, as ``fused_uconv_block.launches`` counts K1's
+# TACs computed, by either form, as ``fused_uconv_block.launches`` counts K1's
 _tac_fast.calls = 0
 
 

@@ -80,4 +80,12 @@ def load_kernels() -> ctypes.CDLL:
     lib.uconv_block_forward.argtypes = (
         [ptr] * 17 + [i32] * 5 + [ctypes.c_float, i32, ptr])
     lib.uconv_block_forward.restype = i32
+    lib.tac_tiles.argtypes = [i32]
+    lib.tac_tiles.restype = i32
+    lib.tac_workspace_floats.argtypes = [i32] * 3
+    lib.tac_workspace_floats.restype = ctypes.c_longlong
+    lib.tac_launches.argtypes = [i32]
+    lib.tac_launches.restype = i32
+    lib.tac_forward.argtypes = [ptr] * 14 + [i32] * 4 + [ctypes.c_float, ptr]
+    lib.tac_forward.restype = i32
     return lib
