@@ -2,10 +2,11 @@
 ``scripts/bench_gc_serving.py``, which imports JAX): every serving path of
 GroupComm SuDoRM-RF v2 U16/512, group 16 (565,073 params), on one card.
 
-  * every forward of ``fast_inference.GC_IMPLS`` (``kernel``: K1 on the
-    group-folded layout, 16 launches a forward; ``fma_merged``, ``fma_bd``,
-    ``fma``, ``xla``), each in fp32 and with ``compute_dtype="bfloat16"``
-    from a copy cast once for it (rows ``<impl>_fp32``, ``<impl>_bf16``);
+  * every forward of ``fast_inference.GC_IMPLS`` (``kernel``: the fused
+    TAC, and K1 on the group-folded layout, 16 launches a forward;
+    ``fma_merged``; ``xla``), each in fp32 and with
+    ``compute_dtype="bfloat16"`` from a copy cast once for it (rows
+    ``<impl>_fp32``, ``<impl>_bf16``);
   * int8 (``models/quantized.py::groupcomm_forward_int8``) with dynamic and
     with static scales (``calibrate_gc_scales`` on a different batch).
 

@@ -44,7 +44,7 @@ _BLOCKS = {
     "fma": uconv_block_fma,
     "xla": uconv_block_reference,
 }
-GC_IMPLS = ("kernel", "fma_merged", "fma_bd", "fma", "xla")
+GC_IMPLS = ("kernel", "fma_merged", "xla")
 
 
 def _dtype(compute_dtype):
@@ -126,7 +126,7 @@ def _decode(model, x, s, in_len, n_out: int):
 
 
 def _block_fn(impl: str, pyramid_dtype):
-    """The block form ``impl`` names (None for GroupComm's merged forms,
+    """The block form ``impl`` names (None for GroupComm's 'fma_merged',
     which its forward runs itself); ``pyramid_dtype`` is K1's (the 'kernel'
     impl's) level store, fp32 by default as JAX's kernel's."""
     if impl == "kernel":
@@ -186,25 +186,6 @@ def improved_forward_fast(model, input_wav: torch.Tensor, impl: str = None,
         return est if tp_mesh is None else all_gather_rows(est, tp_mesh.data_group)
 
 
-def _make_bd_mm(b: int, g: int):
-    """Group-batched block-diagonal channel matmul hook: the G groups'
-    shared (C/G -> O/G) projection as ONE product with the block-diagonal
-    weight I_G (x) w of shape (G*O, G*C), over v viewed as (B, G*C, T).
-    Exact up to reduction order: the inserted weights are 0.0.
-
-    Returns a hook with the ``matmul(w (O, C), v (B*G, C, T))`` signature of
-    :func:`gc_uconv_block_fma_merged` / :func:`_tac_fast`.
-    """
-
-    def bd_mm(w, v):
-        o, c = w.shape
-        t = v.shape[-1]
-        w_bd = torch.kron(torch.eye(g, dtype=w.dtype, device=w.device), w)
-        return torch.matmul(w_bd, v.reshape(b, g * c, t)).reshape(b * g, o, t)
-
-    return bd_mm
-
-
 @torch.no_grad()
 def groupcomm_forward_fast(model, input_wav: torch.Tensor, impl: str = None,
                            compute_dtype=None, pyramid_dtype=torch.float32) -> torch.Tensor:
@@ -213,20 +194,23 @@ def groupcomm_forward_fast(model, input_wav: torch.Tensor, impl: str = None,
     as :func:`improved_forward_fast`'s.
 
     Each block is TAC (:func:`_tac_fast`) and then the shared U-ConvBlock
-    in the form ``impl`` names:
+    in the form ``impl`` names, one a role:
 
     * 'kernel' (the default on a CUDA tensor): TAC by the hand-written
       kernel (``ops.tac.fused_tac``) where the stream is fp32 and a group
       at most ``TAC_MAX_N`` channels wide, else the bandwidth-shaped plain
       TAC; the CUDA U-ConvBlock kernel on the group-folded (B*G, C/G, T)
       layout, whose per-row GlobLN is then per (batch, group);
-    * 'fma_merged' (the default on the CPU): groups merged into the channel
-      axis (:func:`gc_uconv_block_fma_merged`);
-    * 'fma_bd': 'fma_merged' with every shared per-group projection (TAC in
-      and out, the block's proj and res) as one block-diagonal product
-      (:func:`_make_bd_mm`);
-    * 'fma': ``uconv_block_fma`` on the folded layout;
+    * 'fma_merged' (the default on the CPU, and the trainable block's
+      form): groups merged into the channel axis
+      (:func:`gc_uconv_block_fma_merged`);
     * 'xla': ``uconv_block_reference`` on the folded layout.
+
+    Departure: JAX's 'fma_bd', each shared per-group projection as one
+    block-diagonal product, is a TPU layout for the MXU, and the port serves
+    its arithmetic as 'fma_merged'; JAX's 'fma', the multiply-add block on
+    the folded layout, is served by neither (``uconv_block_fma`` stays the
+    Improved model's).
     """
     with tracing.span("forward", rows=input_wav.shape[0]):
         if impl is None:
@@ -239,19 +223,17 @@ def groupcomm_forward_fast(model, input_wav: torch.Tensor, impl: str = None,
             x, s, in_len = _encode(model, input_wav, _dtype(compute_dtype))
         b, c, t = x.shape
         g, depth = model.group_size, model.upsampling_depth
-        bd_mm = _make_bd_mm(b, g) if impl == "fma_bd" else None
-        tac_mms = (bd_mm, torch.matmul, bd_mm) if bd_mm is not None else None
         for blk in model.sm:
             # the hand-written TAC takes an fp32 stream of groups up to
             # TAC_MAX_N channels wide; a bf16 stream (the first block's under
             # compute_dtype) or wider groups run the plain TAC
             fused = impl == "kernel" and x.dtype == torch.float32 and c // g <= TAC_MAX_N
             with tracing.span("forward.tac", fused=int(fused)):
-                y = _tac_fast(blk.TAC, x.reshape(b, g, c // g, t), matmuls=tac_mms, fused=fused)
+                y = _tac_fast(blk.TAC, x.reshape(b, g, c // g, t), fused=fused)
             with tracing.span("forward.block"):
                 kp = params_from_module(blk.UBlock)
-                if impl in ("fma_merged", "fma_bd"):
-                    x = gc_uconv_block_fma_merged(y.reshape(b, c, t), kp, depth, g, matmul=bd_mm)
+                if block is None:
+                    x = gc_uconv_block_fma_merged(y.reshape(b, c, t), kp, depth, g)
                 else:
                     x = block(y.reshape(b * g, c // g, t), kp, depth).reshape(b, c, t)
         with tracing.span("forward.decode"):

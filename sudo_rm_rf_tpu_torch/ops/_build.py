@@ -1,9 +1,13 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/``.
+"""Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
 shared library with a plain C interface, which ``ctypes`` loads. The library
 lives in ``sudo_rm_rf_tpu_torch/_build/`` under a name keyed on a hash of the
 sources and flags, so an edited source rebuilds. Nothing here runs at import.
+
+The forward entry points share one convention, ``entry(x, out, *params,
+workspace, *scalars, stream) -> cudaError_t``, and their wrappers one
+:func:`check_params` and one :func:`launch`.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -89,3 +95,45 @@ def load_kernels() -> ctypes.CDLL:
     lib.tac_forward.argtypes = [ptr] * 14 + [i32] * 4 + [ctypes.c_float, ptr]
     lib.tac_forward.restype = i32
     return lib
+
+
+def check_params(name: str, x, params, shapes: dict, convert: bool = False) -> list:
+    """``params[label]`` for each label of ``shapes``, in its order, for a
+    launch on x: each on x's device with the label's shape and a contiguous
+    float32 tensor (``convert`` reads it as one), else a ValueError naming
+    ``name`` and the label; a RuntimeError where autograd would need a
+    gradient. Runs on CPU tensors too."""
+    out = []
+    for label, shape in shapes.items():
+        p = params[label]
+        if p.device != x.device or tuple(p.shape) != shape:
+            raise ValueError(f"{name}: param {label} must be a {shape} tensor on {x.device}, "
+                             f"got {tuple(p.shape)} on {p.device}")
+        if p.dtype != torch.float32 or not p.is_contiguous():
+            if not convert:
+                raise ValueError(f"{name}: param {label} must be a contiguous float32 tensor, "
+                                 f"got {p.dtype} contiguous={p.is_contiguous()}")
+            p = p.float().contiguous()
+        out.append(p)
+    if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in out)):
+        raise RuntimeError(f"{name} has no backward: call it under torch.no_grad() or "
+                           "torch.inference_mode()")
+    return out
+
+
+def launch(name: str, lib: ctypes.CDLL, entry: str, x, params: list, workspace_floats: int,
+           *scalars):
+    """Run ``lib.<entry>`` on x's device and current stream, with a new
+    output like x and a float32 workspace of ``workspace_floats``; returns
+    the output. A launch error raises a RuntimeError naming ``name``."""
+    with torch.cuda.device(x.device):
+        out = torch.empty_like(x)
+        work = torch.empty(workspace_floats, dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        ptr = lambda v: ctypes.c_void_p(v.data_ptr())  # noqa: E731
+        err = getattr(lib, entry)(ptr(x), ptr(out), *map(ptr, params), ptr(work), *scalars,
+                                  ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed: "
+                           f"{lib.cuda_error_string(err).decode()} ({err})")
+    return out

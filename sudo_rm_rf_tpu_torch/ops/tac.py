@@ -16,6 +16,7 @@ import functools
 
 import torch
 
+from sudo_rm_rf_tpu_torch.ops import _build
 from sudo_rm_rf_tpu_torch.ops.norm import glob_ln
 from sudo_rm_rf_tpu_torch.ops.uconv import EPS
 
@@ -66,14 +67,20 @@ def tac_plain(tac, x, matmuls=None):
     return x + out.reshape(b, g, n, t)
 
 
-def _tac_tensors(tac) -> list:
-    """The module's params in the order of ``tac_forward``'s arguments."""
-    lin_in, act_in = tac.TAC_input
-    lin_mean, act_mean = tac.TAC_mean
-    lin_out, act_out = tac.TAC_output
-    return [lin_in.weight, lin_in.bias, act_in.weight, lin_mean.weight, lin_mean.bias,
-            act_mean.weight, lin_out.weight, lin_out.bias, act_out.weight,
-            tac.TAC_norm.gamma, tac.TAC_norm.beta]
+def _checked_params(tac, x) -> list:
+    """The module's params in the order of ``tac_forward``'s arguments, for
+    x (B, G, n, T), read as fp32 and checked by :func:`_build.check_params`."""
+    (lin_in, act_in), (lin_mean, act_mean), (lin_out, act_out) = (
+        tac.TAC_input, tac.TAC_mean, tac.TAC_output)
+    n, h = x.shape[2], 3 * x.shape[2]
+    return _build.check_params("fused_tac", x, {
+        "w_in": lin_in.weight, "b_in": lin_in.bias, "s_in": act_in.weight,
+        "w_mean": lin_mean.weight, "b_mean": lin_mean.bias, "s_mean": act_mean.weight,
+        "w_out": lin_out.weight, "b_out": lin_out.bias, "s_out": act_out.weight,
+        "gamma": tac.TAC_norm.gamma, "beta": tac.TAC_norm.beta,
+    }, {"w_in": (h, n), "b_in": (h,), "s_in": (1,), "w_mean": (h, h), "b_mean": (h,),
+        "s_mean": (1,), "w_out": (n, 2 * h), "b_out": (n,), "s_out": (1,), "gamma": (n,),
+        "beta": (n,)}, convert=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,33 +110,11 @@ def fused_tac(tac, x):
     b, g, n, t = x.shape
     if not 1 <= n <= TAC_MAX_N:
         raise ValueError(f"fused_tac: {n} channels a group, the kernel takes 1 to {TAC_MAX_N}")
-    h = 3 * n
-    shapes = [(h, n), (h,), (1,), (h, h), (h,), (1,), (n, 2 * h), (n,), (1,), (n,), (n,)]
-    params = []
-    for p, shape in zip(_tac_tensors(tac), shapes):
-        if p.device != x.device or tuple(p.shape) != shape:
-            raise ValueError(f"fused_tac: a param must be a {shape} tensor on {x.device}, got "
-                             f"{tuple(p.shape)} on {p.device}")
-        params.append(p if p.dtype == torch.float32 and p.is_contiguous()
-                      else p.float().contiguous())
-    if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)):
-        raise RuntimeError("fused_tac has no backward: call it under torch.no_grad() or "
-                           "torch.inference_mode()")
-
-    from sudo_rm_rf_tpu_torch.ops._build import load_kernels
-
-    lib = load_kernels()
+    params = _checked_params(tac, x)
+    lib = _build.load_kernels()
     ws, launches = _work(lib, b, g, t)
-    with torch.cuda.device(x.device):
-        out = torch.empty_like(x)
-        work = torch.empty(ws, dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        ptr = lambda v: ctypes.c_void_p(v.data_ptr())  # noqa: E731
-        err = lib.tac_forward(ptr(x), ptr(out), *map(ptr, params), ptr(work), b, g, n, t,
-                              ctypes.c_float(EPS), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"fused_tac: CUDA launch failed: "
-                           f"{lib.cuda_error_string(err).decode()} ({err})")
+    out = _build.launch("fused_tac", lib, "tac_forward", x, params, ws, b, g, n, t,
+                        ctypes.c_float(EPS))
     fused_tac.launches += launches
     return out
 

@@ -27,6 +27,7 @@ import functools
 
 import torch
 
+from sudo_rm_rf_tpu_torch.ops import _build
 from sudo_rm_rf_tpu_torch.ops.conv import conv1d
 from sudo_rm_rf_tpu_torch.ops.norm import glob_ln
 from sudo_rm_rf_tpu_torch.ops.resample import upsample_nearest_2x
@@ -346,6 +347,17 @@ def uconv_block_levelwise(x, params, depth: int, pyramid_dtype=torch.float32):
 PYRAMID_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _checked_params(x, params, depth: int) -> list:
+    """x's block ``params`` in the order of ``uconv_block_forward``'s
+    arguments, checked by :func:`_build.check_params`."""
+    co, ci = x.shape[1], params["proj_w"].shape[0]
+    return _build.check_params("fused_uconv_block", x, params, {
+        "proj_w": (ci, co), "proj_b": (ci,), "proj_g": (ci,), "proj_beta": (ci,),
+        "proj_slope": (), "dw_w": (depth, ci, 5), "dw_b": (depth, ci),
+        "dw_g": (depth, ci), "dw_beta": (depth, ci), "final_g": (ci,),
+        "final_beta": (ci,), "final_slope": (), "res_w": (co, ci), "res_b": (co,)})
+
+
 def fused_uconv_block(x, params, depth: int = 5, pyramid_dtype=torch.float32):
     """Run the U-ConvBlock. x: (B, Co, T) fp32; params fp32; returns (B, Co,
     T) fp32.
@@ -378,44 +390,12 @@ def fused_uconv_block(x, params, depth: int = 5, pyramid_dtype=torch.float32):
     ci = params["proj_w"].shape[0]
     if depth < 1 or t % (2 ** (depth - 1)):
         raise ValueError(f"fused_uconv_block: T={t} not divisible by 2**(depth-1), depth={depth}")
-    # every param's shape, in the order of the C entry point's arguments
-    want = {
-        "proj_w": (ci, co), "proj_b": (ci,), "proj_g": (ci,), "proj_beta": (ci,),
-        "proj_slope": (), "dw_w": (depth, ci, 5), "dw_b": (depth, ci),
-        "dw_g": (depth, ci), "dw_beta": (depth, ci), "final_g": (ci,),
-        "final_beta": (ci,), "final_slope": (), "res_w": (co, ci), "res_b": (co,),
-    }
-    for key in want:
-        p = params[key]
-        if (p.device != x.device or p.dtype != torch.float32
-                or not p.is_contiguous() or tuple(p.shape) != want[key]):
-            raise ValueError(
-                f"fused_uconv_block: params[{key!r}] must be a contiguous float32 "
-                f"{want[key]} tensor on {x.device}, got {p.dtype} {tuple(p.shape)} "
-                f"on {p.device}")
-    if torch.is_grad_enabled() and (
-            x.requires_grad or any(params[key].requires_grad for key in want)):
-        raise RuntimeError("fused_uconv_block has no backward: call it under "
-                           "torch.no_grad() or torch.inference_mode()")
-
-    from sudo_rm_rf_tpu_torch.ops._build import load_kernels
-
-    lib = load_kernels()
-    with torch.cuda.device(x.device):
-        out = torch.empty_like(x)
-        bf16 = int(pyramid_dtype == torch.bfloat16)
-        ws = lib.uconv_workspace_floats(b, co, ci, t, depth, bf16)
-        work = torch.empty(ws, dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        ptr = lambda v: ctypes.c_void_p(v.data_ptr())
-        err = lib.uconv_block_forward(
-            ptr(x), ptr(out), *(ptr(params[key]) for key in want),
-            ptr(work), b, co, ci, t, depth, ctypes.c_float(EPS), bf16,
-            ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_uconv_block: CUDA launch failed: "
-                           f"{lib.cuda_error_string(err).decode()} ({err})")
+    ps = _checked_params(x, params, depth)
+    lib = _build.load_kernels()
+    bf16 = int(pyramid_dtype == torch.bfloat16)
+    out = _build.launch("fused_uconv_block", lib, "uconv_block_forward", x, ps,
+                        lib.uconv_workspace_floats(b, co, ci, t, depth, bf16),
+                        b, co, ci, t, depth, ctypes.c_float(EPS), bf16)
     fused_uconv_block.launches += 1
     if bf16:
         fused_uconv_block.launches_bf16_pyramid += 1

@@ -100,6 +100,21 @@ def _jax_fast(case, impl):
         jfi.fused_uconv_block = orig
 
 
+def _bd_mm(b, g):
+    """The port's block-diagonal channel-matmul hook (the arithmetic of
+    JAX's 'fma_bd'): the G groups' shared projection ``w`` (O, C) as one
+    product with I_G (x) w over v (B*G, C, T) viewed as (B, G*C, T). It holds
+    the ``matmuls`` / ``matmul`` hooks, which int8 serving also passes,
+    against JAX's own."""
+
+    def bd_mm(w, v):
+        o, c = w.shape
+        w_bd = torch.kron(torch.eye(g, dtype=w.dtype, device=w.device), w)
+        return torch.matmul(w_bd, v.reshape(b, g * c, -1)).reshape(b * g, o, -1)
+
+    return bd_mm
+
+
 # -- modules ------------------------------------------------------------------
 
 
@@ -125,7 +140,7 @@ def test_tac_matches_jax(form):
         if form == "module":
             got = tac(torch.from_numpy(x))
         else:
-            bd = tfi._make_bd_mm(2, 4)
+            bd = _bd_mm(2, 4)
             mms = (bd, torch.matmul, bd) if form == "fast_bd" else None
             got = tgc._tac_fast(tac, torch.from_numpy(x), matmuls=mms)
     np.testing.assert_allclose(got.numpy(), want[form], **TOL)
@@ -154,7 +169,7 @@ def test_gc_uconv_block_fma_merged_matches_jax(matmul):
     want = np.asarray(jax.jit(lambda v, p: jfi.gc_uconv_block_fma_merged(v, p, depth, g, matmul=jmm))(
         jnp.asarray(x), {k: jnp.asarray(v) for k, v in kp.items()}))
     tkp = {k: torch.from_numpy(np.asarray(v)) for k, v in kp.items()}
-    tmm = tfi._make_bd_mm(b, g) if matmul == "block_diagonal" else None
+    tmm = _bd_mm(b, g) if matmul == "block_diagonal" else None
     got = tgc.gc_uconv_block_fma_merged(torch.from_numpy(x), tkp, depth, g, matmul=tmm)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     folded = U.uconv_block_reference(torch.from_numpy(x).reshape(b * g, 8, t), tkp, depth)
@@ -206,7 +221,7 @@ def test_model_forward_matches_jax(case, block_impl):
 
 
 @pytest.mark.parametrize("impl,case", [(impl, "mono") for impl in tfi.GC_IMPLS]
-                         + [("fma_merged", "stereo")])
+                         + [("fma_merged", "stereo"), ("xla", "stereo")])
 def test_groupcomm_forward_fast_matches_jax(impl, case):
     want = _jax_fast(case, "pallas" if impl == "kernel" else impl)
     got = tfi.groupcomm_forward_fast(_port(case), torch.from_numpy(_jax_case(case)[1]),
@@ -215,14 +230,16 @@ def test_groupcomm_forward_fast_matches_jax(impl, case):
     np.testing.assert_allclose(got, _jax_case(case)[2], **TOL)
 
 
-def test_groupcomm_forward_fast_defaults_and_rejects_unknown_impl():
+# JAX's TPU kernel impl, and the two forms the port does not serve
+@pytest.mark.parametrize("unknown", ["pallas", "fma_bd", "fma"])
+def test_groupcomm_forward_fast_defaults_and_rejects_unknown_impl(unknown):
     model, x = _port(), torch.from_numpy(_jax_case("mono")[1])
     before = U.fused_uconv_block.launches
     torch.testing.assert_close(tfi.groupcomm_forward_fast(model, x),
                                tfi.groupcomm_forward_fast(model, x, impl="fma_merged"))
     assert U.fused_uconv_block.launches == before
-    with pytest.raises(ValueError, match="impl"):
-        tfi.groupcomm_forward_fast(model, x, impl="pallas")
+    with pytest.raises(ValueError, match="impl.*'kernel', 'fma_merged', 'xla'"):
+        tfi.groupcomm_forward_fast(model, x, impl=unknown)
 
 
 # -- gradients and training ---------------------------------------------------

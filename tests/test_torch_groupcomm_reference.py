@@ -7,8 +7,8 @@ Tolerance: rtol 1e-4, atol 1e-5, as tests/test_torch_groupcomm.py holds the
 port to the JAX package. Both sides run in fp32 and differ only in the order
 of their sums: the port splits TAC's output Linear (``_tac_fast``), folds
 GlobLN into scale and shift in one pass, and merges the groups into the
-channel axis ('fma_merged', 'fma_bd', whose block-diagonal products add
-exact zeros); such reorderings move fp32 results by about 1e-6 relative.
+channel axis ('fma_merged'); such reorderings move fp32 results by about
+1e-6 relative.
 """
 
 import sys
@@ -144,6 +144,6 @@ def test_forward_records_encode_tac_blocks_and_decode(no_spans):
 def test_no_span_without_a_profiler_and_tac_still_counted(no_spans):
     model = _model(HP)
     calls = gc._tac_fast.calls
-    groupcomm_forward_fast(model, _mixture(2, 1, 800), impl="fma")
+    groupcomm_forward_fast(model, _mixture(2, 1, 800), impl="fma_merged")
     assert tracing.spans() == []
     assert gc._tac_fast.calls - calls == HP["num_blocks"]

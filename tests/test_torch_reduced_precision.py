@@ -120,7 +120,7 @@ def _jax_fast(gc: bool, impl: str, compute_dtype):
 
 # port impl -> JAX impl
 IMPROVED_IMPLS = {"fma": "fma", "xla": "xla", "kernel": "pallas"}
-GC_IMPLS = {"fma_merged": "fma_merged", "fma": "fma", "xla": "xla", "kernel": "pallas"}
+GC_IMPLS = {"fma_merged": "fma_merged", "xla": "xla", "kernel": "pallas"}
 
 
 @pytest.mark.parametrize("gc,impl", [(False, i) for i in IMPROVED_IMPLS]

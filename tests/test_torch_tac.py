@@ -111,6 +111,36 @@ def test_fused_tac_on_the_cpu_is_the_plain_tac_and_the_reference(n):
     torch.testing.assert_close(got, _reference_tac(tac, x), **TOL)
 
 
+@pytest.mark.parametrize("fault", ["none", "shape", "device", "dtype", "grad"])
+def test_tac_param_check_runs_on_cpu_tensors(fault):
+    """TAC's param table through the launch's shared check
+    (``_build.check_params``), which runs before any launch: a module of
+    another width than x's groups, a param on another device than x and a
+    param that would need a gradient each raise with the wrapper's name; a
+    float64 param is read as float32, in the order of the C entry point."""
+    tac, x = _tac(8 if fault == "shape" else 4), _x((2, 3, 4, 37))
+    if fault == "device":
+        tac.TAC_norm.beta = torch.nn.Parameter(tac.TAC_norm.beta.detach().to("meta"))
+    elif fault == "dtype":
+        tac.double()
+    raises = {
+        "shape": (ValueError, r"fused_tac: param w_in must be a \(12, 4\) tensor on cpu"),
+        "device": (ValueError, "fused_tac: param beta .* on meta"),
+        "grad": (RuntimeError, "fused_tac has no backward"),
+    }
+    if fault in raises:
+        err, match = raises[fault]
+        with torch.set_grad_enabled(fault == "grad"), pytest.raises(err, match=match):
+            T._checked_params(tac, x)
+        return
+    with torch.no_grad():
+        got = T._checked_params(tac, x)
+    own = list(tac.parameters())  # the module's order is the entry point's
+    assert len(got) == len(own) == 11 and all(p.dtype == torch.float32 for p in got)
+    for p, q in zip(got, own):
+        assert p is q if fault == "none" else torch.equal(p, q.float())
+
+
 @pytest.mark.parametrize("impl", GC_IMPLS)
 def test_every_impl_counts_one_tac_a_block(impl):
     model = _model(HP)
@@ -126,6 +156,9 @@ def test_every_impl_counts_one_tac_a_block(impl):
     ("kernel", "bfloat16", [0, 1, 1]),  # a bf16 stream up to the first K1 call
     ("fma_merged", None, [0, 0, 0]),
     ("xla", None, [0, 0, 0]),
+    # only 'kernel' routes to the fused TAC, whatever the dtype
+    ("fma_merged", "bfloat16", [0, 0, 0]),
+    ("xla", "bfloat16", [0, 0, 0]),
 ])
 def test_forward_tac_spans_carry_the_route(impl, compute_dtype, fused, no_spans):
     model = _model(HP)

@@ -166,6 +166,40 @@ def test_fused_uconv_block_rejects_other_devices():
         U.fused_uconv_block(torch.from_numpy(x).to("meta"), tp, 4)
 
 
+@pytest.mark.parametrize("fault", ["none", "shape", "device", "dtype", "grad"])
+def test_k1_param_check_runs_on_cpu_tensors(fault):
+    """K1's param table through the launch's shared check
+    (``_build.check_params``), which runs before any launch: a wrong shape,
+    a param on another device than x, a non-float32 param and a param that
+    would need a gradient each raise with the wrapper's name; a good table
+    passes through as it is, in the order of the C entry point."""
+    params, x = _inputs(4, 512, 64, 32)
+    tp = {k: torch.from_numpy(np.asarray(v)) for k, v in params.items()}
+    raises = {
+        "shape": (ValueError, r"fused_uconv_block: param dw_w must be a \(4, 64, 5\) tensor"),
+        "device": (ValueError, "fused_uconv_block: param res_b .* on meta"),
+        "dtype": (ValueError, "fused_uconv_block: param proj_g must be a contiguous float32"),
+        "grad": (RuntimeError, "fused_uconv_block has no backward"),
+    }
+    if fault == "shape":
+        tp["dw_w"] = tp["dw_w"][:, :, :4]
+    elif fault == "device":
+        tp["res_b"] = tp["res_b"].to("meta")
+    elif fault == "dtype":
+        tp["proj_g"] = tp["proj_g"].double()
+    elif fault == "grad":
+        tp["proj_w"].requires_grad_()
+    if fault == "none":
+        got = U._checked_params(torch.from_numpy(x), tp, 4)
+        order = ("proj_w", "proj_b", "proj_g", "proj_beta", "proj_slope", "dw_w", "dw_b",
+                 "dw_g", "dw_beta", "final_g", "final_beta", "final_slope", "res_w", "res_b")
+        assert [id(p) for p in got] == [id(tp[k]) for k in order]
+        return
+    err, match = raises[fault]
+    with pytest.raises(err, match=match):
+        U._checked_params(torch.from_numpy(x), tp, 4)
+
+
 def test_tf32_round_is_round_to_nearest_ties_away():
     """``tf32_round`` keeps 10 mantissa bits, rounding to nearest with ties
     away from zero (cvt.rna); the 3xTF32 product is fp32-accurate."""
