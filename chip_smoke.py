@@ -19,9 +19,15 @@
    ``uconv_block_levelwise`` with the same pyramid: fp32 within rtol = atol
    = 1e-4, bf16 outside it only by the bf16 pyramid's rounding flips (10.),
    two calls bit-identical; its time, the plain version's, its bound,
-   yardstick and (B=4) parts. At the flagship and U36 shapes, time the
-   kernel, ``uconv_block_fma`` and ``uconv_block_reference`` (CUDA
-   events, median of 25 after warm-up). At B=4 of both and at the GroupComm shape, also: the
+   yardstick and (B=4) parts. At every shape K1 runs on the main paths
+   (the flagship at bs32 and bs8, U36 at bs4, GroupComm's folded bs32,
+   u36_wide, U8/256, the 10-minute block): each 1x1 product's GEMM route
+   (wide from 128 output and input channels: the library's chooser against
+   ``ops/uconv.py::gemm_wide``), ``gemm_wide_launches`` a call, and the
+   GEMMs' device time a call by route (``torch.profiler``). At the flagship
+   and U36 shapes, time the kernel, ``uconv_block_fma`` and
+   ``uconv_block_reference`` (CUDA events, median of 25 after warm-up). At
+   B=4 of both and at the GroupComm shape, also: the
    device time of each of K1's parts (``torch.profiler``), K1's bound, and
    the ``torch.matmul`` time of the
    same two products (TF32 off, and labelled, on), a yardstick the port
@@ -89,7 +95,9 @@
    bit-identical; its distance to the fp32 pyramid's output, its time
    and parts beside the fp32 pyramid's (in turns), the upsum's bound from
    the halved level bytes. Then K1 and the fp32 plain block against a
-   float64 plain block at K = Co = 256 and 512, and their error growth.
+   float64 plain block at K = Co = 256 and 512, and their error growth;
+   K1's beside the figures of the tree before the wide GEMM (PERF.md
+   section 6), within 1.25x of them.
 11. bf16 serving of Improved and GroupComm U16/512: every impl of the fast
    forward with ``compute_dtype="bfloat16"`` (and ``kernel`` with the bf16
    pyramid, K1's bf16 pyramid's main path) from a copy cast once for it,
@@ -319,6 +327,12 @@ PYRAMID_SHAPES = [(BATCH, 256, 512, 3200, 5), GC_BLOCK, U36_BLOCK]
 PYRAMID_MIN_DB, PYRAMID_MAX_ABS = 80.0, 2e-3
 PYRAMID_FLIP_SHARE, PYRAMID_FLIP_MAX = 1e-5, 1e-2
 F64_SHAPES = [(BATCH, 256, 512, 3200, 5), U36_BLOCK]
+# K1's max |err| and rms against float64 at F64_SHAPES on the tree before
+# the wide GEMM (PERF.md section 6: its outputs there are bit for bit those
+# of the narrow GEMM); the check holds K1 within 1.25x of them
+K1_F64_BEFORE = {"K=256": dict(max_abs=1.936e-06, rms=2.643e-07),
+                 "K=512": dict(max_abs=4.882e-06, rms=2.971e-07)}
+K1_F64_SLACK = 1.25
 # the AUGMENTED phase: docs/runs/improved_u16_synth/hparams.json (Improved
 # U16/512 at out 256, bs8, 4 s at 8 kHz, Adam 1e-3, clip 5, clamp 30, the
 # xla blocks in bf16) on a hierarchical corpus cut from 50 x 60 train and
@@ -2176,6 +2190,12 @@ def k1_float64_phase(torch, U) -> dict:
         lo, hi = out[f"K={F64_SHAPES[0][1]}"][form], out[f"K={F64_SHAPES[1][1]}"][form]
         print(f"K1 float64 check: {form} error growth K=256 -> 512: max x"
               f"{hi['max_abs'] / lo['max_abs']:.2f}, rms x{hi['rms'] / lo['rms']:.2f}")
+    for key, before in K1_F64_BEFORE.items():
+        now = out[key]["k1"]
+        print(f"K1 float64 check {key}: max |err| {now['max_abs']:.3e} (before the wide GEMM "
+              f"{before['max_abs']:.3e}), rms {now['rms']:.3e} (before {before['rms']:.3e})")
+        if any(now[m] > K1_F64_SLACK * before[m] for m in ("max_abs", "rms")):
+            raise RuntimeError(f"K1 float64 check {key}: {now} past {K1_F64_SLACK}x {before}")
     return out
 
 
@@ -2856,6 +2876,54 @@ def k1_wide_check(torch, U) -> dict:
                 parts_ms={k: parts.get(k) for k in K1_PARTS} if parts else None,
                 bit_identical=True)
         del p, x, acc_in
+        torch.cuda.empty_cache()
+    return rows
+
+
+# (B, Co, Ci, T, depth) of every K1 call of the main paths, for the GEMM
+# route check: the flagship at bs32 (u16-batch32) and bs8 (u16-recordings),
+# U36 at bs4 (u36-b4096-batch4), GroupComm's folded bs32 (gc-u16-batch32),
+# u36_wide at B=4, the U8/256 block and the 10-minute block
+GEMM_ROUTE_SHAPES = [(32, 256, 512, 3200, 5), (8, 256, 512, 3200, 5), U36_BLOCK,
+                     (32 * GROUPCOMM["group_size"], 16, 32, 3200, 5),
+                     (BATCH,) + U36_WIDE_BLOCK, CONVERGENCE_BLOCK, LONGFORM_BLOCK]
+
+
+def k1_gemm_routes(torch, U, lib) -> dict:
+    """K1's two 1x1 products at GEMM_ROUTE_SHAPES: the route of each (the
+    library's ``gemm_wide`` must equal ``U.gemm_wide``), the wide GEMM
+    launches a call (``fused_uconv_block.gemm_wide_launches``: 2 where
+    both products are wide, 0 at GroupComm's folded shape) and the GEMMs'
+    device ms a call by route."""
+    rows = {}
+    for shape in GEMM_ROUTE_SHAPES:
+        b, co, ci, t, depth = shape
+        routes = {name: bool(lib.gemm_wide(m, k)) for name, (m, k) in
+                  (("proj", (ci, co)), ("res", (co, ci)))}
+        mirror = {"proj": U.gemm_wide(ci, co), "res": U.gemm_wide(co, ci)}
+        if routes != mirror:
+            raise RuntimeError(f"GEMM routes at {shape}: library {routes}, ops/uconv.py {mirror}")
+        p = block_params(torch, depth, ci, co, seed=0)
+        x = torch.randn(b, co, t, generator=torch.Generator().manual_seed(1)).cuda()
+        before = U.fused_uconv_block.gemm_wide_launches
+        U.fused_uconv_block(x, p, depth)
+        torch.cuda.synchronize()
+        wide = U.fused_uconv_block.gemm_wide_launches - before
+        if wide != sum(routes.values()):
+            raise RuntimeError(f"GEMM routes at {shape}: gemm_wide_launches counted {wide}")
+        ms = {}  # by route: wide::gemm_kernel, or the narrow gemm_kernel
+        for name, v in device_ms_by_kernel(torch, lambda: U.fused_uconv_block(x, p, depth),
+                                           3 if t > 100000 else 10, by_part=False).items():
+            if re.search(r"\bgemm_kernel\b", name):
+                route = "wide" if "wide::" in name else "narrow"
+                ms[route] = ms.get(route, 0.0) + v
+        print(f"K1 GEMM routes {shape}: proj {'wide' if routes['proj'] else 'narrow'}, res "
+              f"{'wide' if routes['res'] else 'narrow'}, gemm_wide_launches {wide} a call; "
+              "GEMM device ms a call: " + (", ".join(f"{k} {v:.4f}" for k, v in sorted(ms.items()))
+                                           or "not measured (no device time in the trace)"))
+        rows[",".join(map(str, shape))] = dict(routes=routes, gemm_wide_launches=wide,
+                                               gemm_ms=ms or None)
+        del p, x
         torch.cuda.empty_cache()
     return rows
 
@@ -3955,10 +4023,12 @@ def main(argv=None) -> int:
     if log.exists():  # registers, shared memory and spills of each kernel
         name = None
         for line in log.read_text().splitlines():
-            m = re.search(r"Compiling entry function .*?([a-z_]+_kernel)((?:L[a-z]\d+E|I)*)", line)
-            if m:  # template arguments, as in gemm_kernel<2,1,1>
-                args_ = re.findall(r"L[a-z](\d+)E", m.group(2))
-                name = m.group(1) + (f"<{','.join(args_)}>" if args_ else "")
+            m = re.search(r"Compiling entry function .*?(4wide\d+)?([a-z_]+_kernel)((?:L[a-z]\d+E|I)*)",
+                          line)
+            if m:  # template arguments, as in gemm_kernel<2,1,1>; wide:: for the wide route
+                args_ = re.findall(r"L[a-z](\d+)E", m.group(3))
+                name = (("wide::" if m.group(1) else "") + m.group(2)
+                        + (f"<{','.join(args_)}>" if args_ else ""))
             if "Used" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
     hmma = tensor_core_instructions(_build.library_path())
@@ -3982,6 +4052,7 @@ def main(argv=None) -> int:
     # 3. the kernel against its plain version; its bf16 pyramid; float64
     phase("k1", lambda: dict(k1_phase(torch, U, _build.load_kernels(), hmma),
                              wide=k1_wide_check(torch, U),
+                             routes=k1_gemm_routes(torch, U, _build.load_kernels()),
                              ladder=k1_ladder_check(torch, U, _build.load_kernels())))
     phase("tac", lambda: tac_check(torch, _build.load_kernels()))
     phase("k1_bf16", lambda: k1_bf16_phase(torch, U))

@@ -21,9 +21,12 @@
 //   res GEMM      out = W_r prelu(a_f acc + b_f) + b_r + x; the prologue
 //                 applies the folded norm and PReLU as operands are built.
 //
-// What bounds it on this card: the two GEMMs, 2 * 2 * B * Ci * Co * T flops
-// (6.7 GFLOP at B=4, Co=256, Ci=512, T=3200). On the fp32 FMA pipes (67
-// TFLOP/s) that alone is 0.10 ms; the tensor cores run TF32 at 495 TFLOP/s.
+// What bounds it on this card: the two GEMMs, 2 * 2 * B * Ci * Co * T flops,
+// taken in three TF32 passes (below). At the serving shapes they are bound
+// by the tensor cores: at (32, 256, 512, 3200) the two products are 53.7
+// GFLOP, three passes at 495 TFLOP/s take 0.325 ms, and their bytes (x,
+// the proj output, the res input, the residual and out: 735 MB) 0.219 ms
+// at 3.35 TB/s; at U36's (4, 512, 512, 6400) 0.163 ms against 0.078 ms.
 // The other kernels are memory-bound: the ladder reads each level's input
 // and writes its output once, 15,400 floats a (batch, channel) row at
 // T=3200 (1.0 GB at B=32, 0.30 ms at 3.35 TB/s; its 10 flops an output take
@@ -32,29 +35,42 @@
 //
 // What the design does about it:
 // * GEMMs on the tensor cores in 3xTF32: each operand v is split into
-//   hi = tf32(v) and lo = tf32(v - hi) (cvt.rna), and the kernel sums
-//   lo*hi + hi*lo + hi*hi in fp32. The tensor cores add into their
-//   accumulator without rounding to nearest, so a sum kept there over the
-//   whole reduction drifts with its length (it was ~8x the fp32 reference's
-//   error against float64); each 32-deep stage is summed afresh on the
-//   tensor cores and added to the running fp32 sum in registers, which
-//   rounds to nearest, and the result is as accurate as an fp32 GEMM. wgmma
-//   takes tf32 operands from shared memory only K-major, and x's tile
+//   hi = tf32(v) and lo = tf32(v - hi) (rounded to nearest, ties away),
+//   and the kernel sums lo*hi + hi*lo + hi*hi in fp32. The tensor cores add
+//   into their accumulator without rounding to nearest, so a sum kept there
+//   over the whole reduction drifts with its length (it was ~8x the fp32
+//   reference's error against float64); each 32-deep stage is summed afresh
+//   on the tensor cores and added to the running fp32 sum in registers,
+//   which rounds to nearest, and the result is as accurate as an fp32 GEMM.
+//   wgmma takes tf32 operands from shared memory only K-major, and x's tile
 //   (channels x time, time contiguous) is not, so the product is taken
 //   transposed, as the TPU kernel does: out^T (time x channels) = x^T W^T.
 //   x^T is wgmma's register operand: the consumer warps read the x tile from
 //   shared memory into the fragment layout, applying the res GEMM's fold +
-//   PReLU prologue and the hi/lo split as they go. W^T is the shared-memory
-//   operand, K-major as W is stored, in the 128-byte swizzle; a small split
-//   kernel writes W's hi and lo planes once per call, zero-padded to whole
-//   tiles. A 2-stage cp.async ring (zero-fill for ragged edges) feeds both,
-//   and each k step's fragments are built while the previous step's wgmmas
-//   run. The epilogue transposes the tile through shared memory, so that
-//   bias, residual and stores move 16 bytes a thread along T.
-// * Two blocks share an SM (<= 128 registers a thread, ~69 KB of shared
-//   memory a block), so one block's loads and epilogue overlap the other's
-//   tensor-core work. The tile is 64 channels wide: the stage sum and the
-//   running sum of a 128-channel tile would not fit 128 registers.
+//   PReLU prologue and the hi/lo split as they go, each k step's while the
+//   step before runs. W^T is the shared-memory operand, K-major as W is
+//   stored, in the 128-byte swizzle; a small split kernel writes W's hi and
+//   lo planes once per call, zero-padded to whole tiles. The epilogue
+//   transposes the tile through shared memory, so that bias, residual and
+//   stores move 16 bytes a thread along T, and writes the moments of each
+//   64x64 sub-tile in one order on either route.
+// * Two routes, by the product's (M, K) alone (wide::route, mirrored by
+//   ops/uconv.py::gemm_wide). From 128 output and 128 input channels the
+//   wide GEMM (wide::gemm_kernel) takes tiles of 128 channels x 128 time
+//   steps, so each x fragment serves twice the channels and the shared
+//   memory that wgmma reads a flop is what it takes. A block an SM walks
+//   over its tiles (a persistent grid) in three roles: the copy engine
+//   loads W's planes and x's tile into rings of three stages, on mbarriers,
+//   with zeros outside the tensors; two consumer warpgroups of 232
+//   registers each (setmaxnreg) hold a running sum and two stage sums of 64
+//   x 128, so a stage's sum is added while the next stage's wgmmas run and
+//   the pipe drains once in eight stages; the epilogue has a tile of its
+//   own, so the next tile's loads run under it. Narrower products, such as
+//   GroupComm's folded 16- and 32-channel ones, cannot fill a 128-channel
+//   tile and are bound by bytes: they keep gemm_kernel, 64-channel tiles
+//   with a 2-stage cp.async ring and two blocks an SM (<= 128 registers a
+//   thread, ~69 KB of shared memory a block), so one block's loads and
+//   epilogue overlap the other's tensor-core work.
 // * The ladder is a stencil: one warp takes one (row, time tile), in passes
 //   of 8 outputs a lane. A lane loads its outputs' 8 (stride 1) or 16
 //   (stride 2) inputs in 16-byte loads, applies the fold (and PReLU) once to
@@ -87,6 +103,7 @@
 // nearest even). That halves the bytes the upsample-sum reads; the ladder
 // writes 6 bytes an output in place of 4.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -236,6 +253,101 @@ __device__ inline void wgmma_m64n64k8(float (&d)[32], const uint32_t (&a)[4], ui
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
+
+// d(64x128, fp32) = a(64x8, tf32, registers) * b(8x128, tf32, shared memory)
+// + (acc ? d : 0).
+__device__ inline void wgmma_m64n128k8_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                          int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+__device__ inline void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+// Makes the barriers' initialisation visible before any thread uses them.
+__device__ inline void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ inline void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Waits until the barrier's phase of this parity has completed. The loop
+// is the compiler's, not a branch inside the asm, so that threads of one
+// warp may wait on different barriers (a loop the compiler cannot see let
+// one waiter starve the others and hang the block).
+__device__ inline bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+__device__ inline void mbar_wait(uint32_t bar, int parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// Arrives on the barrier and expects `bytes` more of asynchronous copies.
+__device__ inline void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Arrives on the barrier once this thread's cp.async copies so far landed.
+__device__ inline void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
+// The box of a 3-D tensor map at coordinates (c0, c1, c2) into shared memory
+// by the copy engine (zero-filled outside the tensor); it counts its bytes
+// off the barrier's expected ones when it lands.
+__device__ inline void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(bar) : "memory");
+}
+
+// A barrier among `threads` threads of the block (whole warps) under `id`.
+__device__ inline void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// The registers a thread of this warpgroup holds from here on.
+template <int N>
+__device__ inline void regs_down() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N)); }
+template <int N>
+__device__ inline void regs_up() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N)); }
 
 // ---- kernels --------------------------------------------------------------
 
@@ -509,6 +621,384 @@ __global__ void __launch_bounds__(GT, 2) gemm_kernel(
   partials[3 * p + 1] = mean;
   partials[3 * p + 2] = m2;
 }
+
+// The wide route: the same product for M >= 128 and K >= 128 (gemm_wide),
+// in blocks of 128 channels x 128 time steps and three warpgroups with
+// separate roles. Its kernel keeps the name gemm_kernel.
+namespace wide {
+
+constexpr int TN = 128;                    // channels of a tile
+constexpr int TT = 128;                    // time rows of a tile
+constexpr int THREADS = 384;               // a producer warpgroup, two consumers
+constexpr int WS = 3;                      // stages of the W ring
+constexpr int RS = 3;                      // stages of the raw x ring
+constexpr int DRAIN = 8;                   // stages between two drains of the pipe
+constexpr int PRODUCER_REGS = 40;          // 128 x 40 + 256 x 232 <= 65,536
+constexpr int CONSUMER_REGS = 232;         // three accumulators of 64 and the rest
+constexpr int PLANE = TN * BK * 4;         // one 128-row plane of W: 16 KB
+constexpr int XP = TT + 8;                 // raw x row pitch: conflict-free fragment reads
+constexpr int RAW_BYTES = BK * XP * 4;     // raw x stage: BK rows x XP, fp32
+constexpr int W_OFF = 0;                   // W stage: hi plane, lo plane (TMA, swizzled)
+constexpr int RAW_OFF = W_OFF + WS * 2 * PLANE;
+constexpr int TILE_OFF = RAW_OFF + RS * RAW_BYTES;  // the epilogue tile
+constexpr int AB_OFF = TILE_OFF + TN * TT * 4;      // the fold's (a, b) of a raw stage
+constexpr int SMEM = AB_OFF + RS * 2 * BK * 4 + 1024;
+static_assert(RAW_BYTES % 128 == 0, "the copy engine writes 128-byte aligned boxes");
+static_assert(SMEM <= 232448 - 1024, "shared memory of one block");
+
+bool route(int M, int K) { return M >= TN && K >= TN; }
+
+// tf32(v), rounded to nearest with ties away from zero (cvt.rna.tf32.f32's
+// rounding), by two integer operations on v's bits: the split runs on the
+// ALU pipes, not the conversion unit.
+__device__ inline uint32_t tf32_bits(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// A value that the compiler cannot compute ahead: keeps the wgmma
+// descriptors of a stage from being hoisted out of the loop into 64
+// registers.
+__device__ inline uint64_t opaque(uint64_t v) {
+  asm volatile("" : "+l"(v));
+  return v;
+}
+
+// Float (c, t) of the epilogue tile (TN channels x TT time steps): 16-byte
+// chunks of a row swizzled by the row, so that the accumulators' column
+// writes and the rows' 16-byte reads are both free of bank conflicts.
+__device__ inline int tile_at(int c, int t) {
+  return c * TT + (((t >> 2) ^ (c & 7)) << 2) + (t & 3);
+}
+
+// out[b, m, t] = sum_k W[m, k] f(X[b, k, t]) + bias[m] (+ R[b, m, t]), as
+// ::gemm_kernel computes it (the same f, VEC and partials), with W as
+// split_kernel's (hi, lo) planes behind the tensor map wmap.
+//
+// The product is cut into tiles of TN channels x TT time rows, channel
+// tiles first; block i takes tiles i, i + gridDim.x, ... (a persistent
+// grid), and stage g of the block is stage g % KT of its (g / KT)-th tile.
+// Warpgroup 0 produces: one thread of warp 3 has the copy engine load W's
+// hi and lo tiles (TN x BK) into a ring of WS stages, already in wgmma's
+// 128-byte swizzle; warps 0-2 load x's tiles (BK rows of XP time steps,
+// zero outside the tensor: the copy engine by tensor map xmap where tma is
+// set, else their cp.async) into a ring of RS raw stages, and 64 of their
+// threads the fold's a and b beside them. Warpgroups 1 and 2 consume: each
+// takes 64 time rows of a tile with one m64n128k8 accumulator, W^T from
+// shared memory and x^T from registers: each 8-deep k step's fragment is
+// read from the raw stage, f applied and split into hi and lo while the
+// step before runs. Each BK-deep stage is summed afresh on the tensor
+// cores, into two stage sums in turn, and added to the running sum (acc)
+// in fp32 registers while the next stage's wgmmas run. The epilogue is
+// ::gemm_kernel's, over the tile's two 64-channel sub-tiles in turn, so
+// each sub-tile's moments are merged in the same order, through a tile of
+// its own in shared memory, while the next tile's loads are in flight.
+template <bool PRO, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1) gemm_kernel(
+    const float* __restrict__ X, const float* __restrict__ bias,
+    const float* __restrict__ pa, const float* __restrict__ pb,
+    const float* __restrict__ slope, const float* __restrict__ R, float* __restrict__ out,
+    float* __restrict__ partials, int B, int M, int K, int N,
+    const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap xmap,
+    int tma) {
+  extern __shared__ unsigned char smem_raw[];
+  // wfull, wfree (WS each), landed, rfree (RS each)
+  __shared__ __align__(8) uint64_t bars[2 * WS + 2 * RS];
+  __shared__ float red[2][2][8][3];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms are 1024-byte aligned
+  unsigned char* sbase = smem_raw + (base - raw);
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int mtiles = cdiv(M, TN), ttiles = cdiv(N, TT);
+  const int mine = cdiv(mtiles * ttiles * B - (int)blockIdx.x, (int)gridDim.x);
+  const int KT = round_up(cdiv(K, BK), DRAIN);  // stages past K are zeros
+  // the tile of the block's k-th: its first channel, time row and batch
+  auto tile_of = [&](int k, int& m0, int& t0, int& b) {
+    const int i = blockIdx.x + k * gridDim.x;
+    m0 = (i % mtiles) * TN;
+    t0 = (i / mtiles % ttiles) * TT;
+    b = i / mtiles / ttiles;
+  };
+  const uint32_t wfull = smem_u32(bars), wfree = wfull + 8 * WS, landed = wfree + 8 * WS;
+  const uint32_t rfree = landed + 8 * RS;
+  if (tid == 0) {
+    for (int j = 0; j < WS; ++j) {
+      mbar_init(wfull + 8 * j, 1);  // the copy engine's bytes
+      mbar_init(wfree + 8 * j, 8);  // lane 0 of every consumer warp
+    }
+    for (int j = 0; j < RS; ++j) {
+      // the copy engine's bytes and the fold's 64 cp.async, or warps 0-2's
+      mbar_init(landed + 8 * j, tma ? 1 + (PRO ? 2 * BK : 0) : 96);
+      mbar_init(rfree + 8 * j, 8);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    regs_down<PRODUCER_REGS>();
+    // Every wait below is made by whole warps (or by a lone thread whose
+    // warp has left): a lane spinning on one barrier while another lane of
+    // its warp has work to do could take all the warp's turns and hang the
+    // block.
+    const int p = tid;
+    if (p >= 96) {  // warp 3: W's stage g into W slot g % WS, both planes,
+                    // rows [m0, m0 + TN) x [k0, k0 + BK), zeros past the planes
+      if (p != 96) return;
+      for (int g = 0; g < mine * KT; ++g) {
+        int m0, t0, b;
+        tile_of(g / KT, m0, t0, b);
+        if (g >= WS) mbar_wait(wfree + 8 * (g % WS), (g / WS - 1) & 1);
+        mbar_expect_tx(wfull + 8 * (g % WS), 2 * PLANE);
+        tma_load(base + W_OFF + (g % WS) * 2 * PLANE, &wmap, g % KT * BK, m0, 0,
+                 wfull + 8 * (g % WS));
+      }
+      return;
+    }
+    // warps 0-2: x's stage g into raw slot g % RS, rows [k0, k0 + BK) x
+    // [t0, t0 + XP), and the fold's a and b of [k0, k0 + BK). Only what
+    // lies inside (K, N) is read; the fragments zero the rest.
+    for (int g = 0; g < mine * KT; ++g) {
+      int m0, t0, b;
+      tile_of(g / KT, m0, t0, b);
+      const int k0 = g % KT * BK, kn = min(BK, K - k0), tn = min(TT, N - t0);
+      const uint32_t rx = base + RAW_OFF + (g % RS) * RAW_BYTES, bar = landed + 8 * (g % RS);
+      if (g >= RS) mbar_wait(rfree + 8 * (g % RS), (g / RS - 1) & 1);
+      if (PRO && p < 2 * BK) {
+        const int k = p % BK;
+        const float* src = (p < BK ? pa : pb) + (size_t)b * K;
+        cp_async4(base + AB_OFF + (g % RS) * 2 * BK * 4 + 4 * p, k < kn ? src + k0 + k : src,
+                  k < kn ? 4 : 0);
+      }
+      if (tma) {
+        if (p == 0) {
+          fence_proxy_async();  // the slot's last reads came before these writes
+          mbar_expect_tx(bar, RAW_BYTES);
+          tma_load(rx, &xmap, t0, k0, b, bar);
+        }
+        if (PRO && p < 2 * BK) cp_async_mbar_arrive(bar);
+        continue;
+      }
+      const float* Xb = X + (size_t)b * K * N;
+      for (int e = p; e < BK * TT; e += 96) {  // row e / TT, column e % TT
+        const int k = e / TT, t = e % TT;
+        const bool ok = k < kn && t < tn;
+        cp_async4(rx + 4 * (k * XP + t), ok ? Xb + (size_t)(k0 + k) * N + t0 + t : Xb,
+                  ok ? 4 : 0);
+      }
+      cp_async_mbar_arrive(bar);
+    }
+    return;
+  }
+
+  regs_up<CONSUMER_REGS>();
+  const int cw = wg - 1, warp = (tid >> 5) & 3;
+  const float sl = PRO ? *slope : 0.f;
+  // this thread's fragment rows and columns (wgmma's tf32 A layout)
+  const int frag_t = 64 * cw + 16 * warp + (lane >> 2), frag_k = lane & 3;
+  float acc[64], s0[64], s1[64];  // a stage's first wgmma ignores s0's, s1's values
+  uint32_t fh[2][4], fl[2][4];    // the fragments of two k steps, hi and lo
+  // k step s of stage g: the x^T fragment (f applied, zero outside (K, N))
+  // split into tf32 hi and lo; q = 0..3: (t, k), (t + 8, k), (t, k + 4),
+  // (t + 8, k + 4)
+  auto frag = [&](int g, int s, int t0, uint32_t (&h)[4], uint32_t (&l)[4]) {
+    const int k0 = g % KT * BK;
+    const float* xs = reinterpret_cast<const float*>(sbase + RAW_OFF + (g % RS) * RAW_BYTES);
+    const float* ab = reinterpret_cast<const float*>(sbase + AB_OFF + (g % RS) * 2 * BK * 4);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = 8 * s + frag_k + 4 * (q >> 1), t = frag_t + 8 * (q & 1);
+      float v = xs[k * XP + t];
+      if (PRO) {
+        v = fmaf(ab[k], v, ab[BK + k]);
+        v = v >= 0.f ? v : sl * v;
+      }
+      if (k0 + k >= K || t0 + t >= N) v = 0.f;
+      h[q] = tf32_bits(v);
+      l[q] = tf32_bits(v - __uint_as_float(h[q]));
+    }
+  };
+  // stage g's lo*hi + hi*lo + hi*hi into d, from zero; each k step's
+  // fragment is built while the step before runs (wgmma reads its register
+  // operand until it completes). With retire_prev, the stage before is in
+  // flight: once the first step is issued it has completed, and its sum,
+  // prev, goes into acc (round to nearest, once a stage) and its W stage
+  // is free. The raw stage is free once the last fragment is read.
+  auto stage = [&](int g, int t0, float (&d)[64], float (&prev)[64], bool retire_prev) {
+    mbar_wait(wfull + 8 * (g % WS), (g / WS) & 1);
+    mbar_wait(landed + 8 * (g % RS), (g / RS) & 1);
+    const uint64_t w = opaque(smem_desc(base + W_OFF + (g % WS) * 2 * PLANE));
+    if (retire_prev) {  // the stage before's third step released fragment 0
+      wgmma_wait<1>();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        pin(fh[0][q]);
+        pin(fl[0][q]);
+      }
+    }
+    frag(g, 0, t0, fh[0], fl[0]);
+#pragma unroll
+    for (int s = 0; s < BK / 8; ++s) {
+      const uint64_t wh = w + ((32 * s) >> 4), wl = w + ((PLANE + 32 * s) >> 4);
+      wgmma_fence();
+      wgmma_m64n128k8_rs(d, fl[s & 1], wh, s != 0);
+      wgmma_m64n128k8_rs(d, fh[s & 1], wl, 1);
+      wgmma_m64n128k8_rs(d, fh[s & 1], wh, 1);
+      wgmma_commit();
+      if (s + 1 < BK / 8) {
+        wgmma_wait<1>();
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          pin(fh[(s + 1) & 1][q]);
+          pin(fl[(s + 1) & 1][q]);
+        }
+        if (s == 0 && retire_prev) {
+#pragma unroll
+          for (int r = 0; r < 64; ++r) {
+            pin(prev[r]);
+            acc[r] += prev[r];
+          }
+          if (lane == 0) mbar_arrive(wfree + 8 * ((g - 1) % WS));
+        }
+        frag(g, s + 1, t0, fh[(s + 1) & 1], fl[(s + 1) & 1]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(rfree + 8 * (g % RS));
+  };
+  float* tile = reinterpret_cast<float*>(sbase + TILE_OFF);
+  const int ctid = tid - 128, wid = ctid >> 5, tq = 4 * lane;
+
+  for (int k = 0; k < mine; ++k) {
+    int m0, t0, b;
+    tile_of(k, m0, t0, b);
+    const int g0 = k * KT;
+#pragma unroll
+    for (int r = 0; r < 64; ++r) acc[r] = 0.f;
+    // Stages alternate between s0 and s1. No stage may be in flight where
+    // two paths of the code join (a turn of the loop, its exit): a join
+    // copies the registers, and ptxas then serializes every wgmma of the
+    // kernel. So the pipe drains once every DRAIN stages.
+    for (int s = 0; s < KT; s += DRAIN) {
+      const int g = g0 + s;
+#pragma unroll
+      for (int j = 0; j < DRAIN; ++j) {  // DRAIN is even: the last stage is s1's
+        if (j % 2 == 0)
+          stage(g + j, t0, s0, s1, j > 0);
+        else
+          stage(g + j, t0, s1, s0, true);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        pin(fh[1][q]);
+        pin(fl[1][q]);
+      }
+#pragma unroll
+      for (int r = 0; r < 64; ++r) {
+        pin(s1[r]);
+        acc[r] += s1[r];
+      }
+      if (lane == 0) mbar_arrive(wfree + 8 * ((g + DRAIN - 1) % WS));
+    }
+
+    // Epilogue: ::gemm_kernel's, through the tile (channel, time);
+    // accumulator r of this thread sits at time frag_t + 8 ((r >> 1) & 1),
+    // channel 8 (r >> 2) + 2 (lane & 3) + (r & 1). The residual's loads
+    // go out first.
+    const int t = t0 + tq;
+    const int valid = max(0, min(4, N - t));  // time steps of this thread's group
+    float4 res[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int m = m0 + 64 * (i >> 3) + wid + 8 * (i & 7);
+      const size_t o = ((size_t)b * M + m) * N + t;
+      res[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (!R || m >= M) continue;
+      if (VEC && valid == 4) {
+        res[i] = *reinterpret_cast<const float4*>(R + o);
+      } else {
+        if (valid > 0) res[i].x = R[o];
+        if (valid > 1) res[i].y = R[o + 1];
+        if (valid > 2) res[i].z = R[o + 2];
+        if (valid > 3) res[i].w = R[o + 3];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 64; ++r)
+      tile[tile_at(8 * (r >> 2) + 2 * (lane & 3) + (r & 1), frag_t + 8 * ((r >> 1) & 1))] = acc[r];
+    named_sync(2, 256);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the two 64-channel sub-tiles
+      float cnt = 0.f, sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int ml = 64 * h + wid + 8 * i, m = m0 + ml;
+        if (m >= M) continue;
+        const float bm = bias[m];
+        float4* at = reinterpret_cast<float4*>(tile + tile_at(ml, tq));
+        float4 v = *at;
+        v.x += bm + res[8 * h + i].x;
+        v.y += bm + res[8 * h + i].y;
+        v.z += bm + res[8 * h + i].z;
+        v.w += bm + res[8 * h + i].w;
+        *at = v;  // kept for the moments
+        const size_t o = ((size_t)b * M + m) * N + t;
+        if (VEC && valid == 4) {
+          *reinterpret_cast<float4*>(out + o) = v;
+        } else {
+          if (valid > 0) out[o] = v.x;
+          if (valid > 1) out[o + 1] = v.y;
+          if (valid > 2) out[o + 2] = v.z;
+          if (valid > 3) out[o + 3] = v.w;
+        }
+        cnt += (float)valid;
+        sum += (v.x + (valid > 1 ? v.y : 0.f)) + ((valid > 2 ? v.z : 0.f) + (valid > 3 ? v.w : 0.f));
+      }
+      if (!partials) continue;
+      float mean = cnt > 0.f ? sum / cnt : 0.f, m2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int ml = 64 * h + wid + 8 * i;
+        const float* at = tile + tile_at(ml, tq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (m0 + ml < M && e < valid) {
+            const float d = at[e] - mean;
+            m2 += d * d;
+          }
+      }
+      float n = cnt;
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) {
+        const float nb = __shfl_down_sync(0xffffffffu, n, off);
+        const float mb = __shfl_down_sync(0xffffffffu, mean, off);
+        const float qb = __shfl_down_sync(0xffffffffu, m2, off);
+        chan_merge(n, mean, m2, nb, mb, qb);
+      }
+      if ((lane & 15) == 0) {
+        red[h][lane >> 4][wid][0] = n;
+        red[h][lane >> 4][wid][1] = mean;
+        red[h][lane >> 4][wid][2] = m2;
+      }
+    }
+    named_sync(2, 256);  // the tile and red are read
+    if (partials && ctid < 4) {
+      const int h = ctid >> 1, half = ctid & 1;  // one thread per sub-tile merges its warps
+      const int mt = cdiv(M, SUB), nt = cdiv(N, SUB), mi = m0 / SUB + h, ti = t0 / SUB + half;
+      if (mi < mt && ti < nt) {
+        float n = red[h][half][0][0], mean = red[h][half][0][1], m2 = red[h][half][0][2];
+        for (int w = 1; w < 8; ++w)
+          chan_merge(n, mean, m2, red[h][half][w][0], red[h][half][w][1], red[h][half][w][2]);
+        const size_t q = ((size_t)b * mt + mi) * nt + ti;
+        partials[3 * q] = n;
+        partials[3 * q + 1] = mean;
+        partials[3 * q + 2] = m2;
+      }
+    }
+  }
+}
+
+}  // namespace wide
 
 // One block: merge batch element b's P moment triples (at partials[3 P b])
 // in float64, thread tid taking p = tid, tid + NT, ... in that order and
@@ -939,13 +1429,86 @@ cudaError_t launch_gemm(cudaStream_t st, const float* S, const float* X,
   return cudaGetLastError();
 }
 
-// Picks the x load width: 16 bytes where N and the pointers allow.
+// cuTensorMapEncodeTiled of the driver, found at first use (null where the
+// driver has none)
+using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                            const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                            const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+Encode tensor_map_encoder() {
+  static const Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) ==
+                   cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<Encode>(fn)
+               : nullptr;
+  }();
+  return encode;
+}
+
+// The wide route: a block an SM (a persistent grid), the tensor map of
+// W's split planes S ((kp, round_up(M, WPAD_M), 2), a stage's box in the
+// 128-byte swizzle) and, where x moves in 16-byte chunks (VEC), that of X
+// ((N, K, B), a stage's box as it lies).
+template <bool PRO, bool VEC>
+cudaError_t launch_gemm_wide(cudaStream_t st, const float* S, const float* X,
+                             const float* bias, const float* pa, const float* pb,
+                             const float* slope, const float* R, float* out,
+                             float* partials, int B, int M, int K, int N) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wide::gemm_kernel<PRO, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, wide::SMEM);
+  if (attr != cudaSuccess) return attr;
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const Encode encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const int kp = round_up(K, BK), mp = round_up(M, WPAD_M);
+  const cuuint64_t wdim[3] = {(cuuint64_t)kp, (cuuint64_t)mp, 2};
+  const cuuint64_t wstride[2] = {4ull * kp, 4ull * kp * mp};
+  const cuuint32_t wbox[3] = {BK, wide::TN, 2};
+  CUtensorMap wmap = {}, xmap = {};
+  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(S), wdim, wstride, wbox,
+             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  bool tma = VEC;
+  if (tma) {
+    const cuuint64_t xdim[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)B};
+    const cuuint64_t xstride[2] = {4ull * N, 4ull * N * K};
+    const cuuint32_t xbox[3] = {wide::XP, BK, 1};
+    tma = encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(X), xdim, xstride,
+                 xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+          CUDA_SUCCESS;
+  }
+  const int tiles = cdiv(M, wide::TN) * cdiv(N, wide::TT) * B;
+  wide::gemm_kernel<PRO, VEC><<<std::min(tiles, sms), wide::THREADS, wide::SMEM, st>>>(
+      X, bias, pa, pb, slope, R, out, partials, B, M, K, N, wmap, xmap, tma ? 1 : 0);
+  return cudaGetLastError();
+}
+
+// Picks the route from (M, K) (wide::route) and the x load width: 16
+// bytes where N and the pointers allow.
 template <bool PRO>
 cudaError_t gemm(cudaStream_t st, const float* S, const float* X,
                  const float* bias, const float* pa, const float* pb,
                  const float* slope, const float* R, float* out,
                  float* partials, int B, int M, int K, int N) {
   const bool vec = N % 4 == 0 && (((uintptr_t)X | (uintptr_t)R | (uintptr_t)out) & 15) == 0;
+  if (wide::route(M, K)) {
+    if (vec)
+      return launch_gemm_wide<PRO, true>(st, S, X, bias, pa, pb, slope, R, out, partials, B, M,
+                                         K, N);
+    return launch_gemm_wide<PRO, false>(st, S, X, bias, pa, pb, slope, R, out, partials, B, M,
+                                        K, N);
+  }
   if (vec)
     return launch_gemm<PRO, true>(st, S, X, bias, pa, pb, slope, R, out, partials, B, M, K, N);
   return launch_gemm<PRO, false>(st, S, X, bias, pa, pb, slope, R, out, partials, B, M, K, N);
@@ -1044,6 +1607,10 @@ int ladder_tiles(int rows, int tout, int* warp_rows, int* tile) {
   *tile = lw.tile;
   return cdiv(tout, lw.tile);
 }
+
+// 1 where a product of M output and K input channels takes the wide GEMM
+// (wide::route), else 0.
+int gemm_wide(int M, int K) { return wide::route(M, K) ? 1 : 0; }
 
 // One U-ConvBlock forward on `stream`. x, out: (B, Co, T); proj_w (Ci, Co);
 // dw_w (depth, Ci, 5); dw_b/dw_g/dw_beta (depth, Ci); res_w (Co, Ci); the

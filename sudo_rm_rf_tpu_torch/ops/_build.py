@@ -83,6 +83,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.cuda_error_string.restype = ctypes.c_char_p
     lib.ladder_tiles.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.ladder_tiles.restype = i32
+    lib.gemm_wide.argtypes = [i32, i32]
+    lib.gemm_wide.restype = i32
     lib.uconv_block_forward.argtypes = (
         [ptr] * 17 + [i32] * 5 + [ctypes.c_float, i32, ptr])
     lib.uconv_block_forward.restype = i32

@@ -41,10 +41,13 @@ from sudo_rm_rf_tpu_torch.parallel.collectives import (
 
 EPS = 1e-8
 # (channels, time steps) of the sub-tile whose GlobLN moments the kernel's
-# proj GEMM writes (SUB x SUB in csrc/uconv.cu). The GEMM computes out^T:
-# each warpgroup holds 64 time rows x 64 channels per accumulator, one
-# sub-tile, whatever the block's width.
+# proj GEMM writes (SUB x SUB in csrc/uconv.cu). The GEMM computes out^T
+# and writes each sub-tile's moments apart, whatever its route: a warpgroup
+# of the narrow GEMM holds one sub-tile, a block of the wide GEMM four.
 GEMM_TILE = (64, 64)
+# the least output and input channels of a 1x1 product that takes the wide
+# GEMM (csrc/uconv.cu: wide::route; one block is 128 channels x 128 time steps)
+GEMM_WIDE_MIN = 128
 # outputs of the upsample-sum whose exact (mean, M2) one thread takes before
 # merging (CHUNK in csrc/uconv.cu)
 UPSUM_CHUNK = 8
@@ -284,6 +287,16 @@ def _fold(v, gamma, beta, rows: int, cols: int):
     return (a[:, :, None], (beta[None, :] - a * mu)[:, :, None])
 
 
+def gemm_wide(m: int, k: int) -> bool:
+    """Whether the kernel's 1x1 product of ``m`` output and ``k`` input
+    channels takes the wide GEMM (128-channel tiles, a producer warpgroup
+    and two consumers) or the narrow one (64-channel tiles): the kernel's
+    ``wide::route``, which the library exports as ``gemm_wide``. The route
+    is a function of the shape alone: the proj product is (Ci, Co), the res
+    product (Co, Ci)."""
+    return m >= GEMM_WIDE_MIN and k >= GEMM_WIDE_MIN
+
+
 def ladder_work(rows: int, tout: int) -> tuple:
     """(rows, time tile) that one warp of the kernel's ladder takes at a
     level of ``rows`` (B * Ci) rows and ``tout`` outputs a row: the kernel's
@@ -400,14 +413,24 @@ def fused_uconv_block(x, params, depth: int = 5, pyramid_dtype=torch.float32):
     if bf16:
         fused_uconv_block.launches_bf16_pyramid += 1
     fused_uconv_block.ladder_levels_tiled += _tiled_levels(lib, b * ci, t, depth)
+    fused_uconv_block.gemm_wide_launches += _wide_gemms(lib, co, ci)
     return out
 
 
 # launches of the kernel, all of them and those with a bf16 pyramid; the
-# ladder levels they ran with more than one time tile a row
+# ladder levels they ran with more than one time tile a row; the 1x1
+# products they ran on the wide GEMM
 fused_uconv_block.launches = 0
 fused_uconv_block.launches_bf16_pyramid = 0
 fused_uconv_block.ladder_levels_tiled = 0
+fused_uconv_block.gemm_wide_launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_gemms(lib, co: int, ci: int) -> int:
+    """GEMM launches of a call on the wide route, by the library's own
+    chooser: the proj product (Ci, Co) and the res product (Co, Ci)."""
+    return lib.gemm_wide(ci, co) + lib.gemm_wide(co, ci)
 
 
 def ladder_tiles(lib, rows: int, tout: int) -> tuple:
