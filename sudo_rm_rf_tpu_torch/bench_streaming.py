@@ -1,13 +1,15 @@
 """Streaming (block-online) serving latency of the causal SuDoRM-RF
 (counterpart of ``scripts/bench_streaming.py``).
 
-Times the step of ``inference.StreamingSeparator``: one forward of the
-causal model (the JAX class defaults, seeded random weights) over the fixed
-[context | hop] window, for each number of concurrent streams stepped as
-one batch. Prints one JSON line per count of streams, with the keys of the
-JAX script: the per-hop step time (CUDA events, median of ``--n_hi`` steps
-after warm-up), the real-time factor (streams x hop duration / step time)
-and the padding granule.
+Times the step of ``inference.StreamingSeparator`` with ``num_streams``
+set to each number of concurrent streams: one push of every stream's next
+hop from host memory (the upload, the window's roll, one batched forward of
+the causal model at the JAX class defaults with seeded random weights over
+the fixed [context | hop] window, and the emitted hop's copy back). Prints
+one JSON line per count of streams, with the keys of the JAX script: the
+per-hop step time (CUDA events, median of ``--n_hi`` steps after warm-up),
+the real-time factor (streams x hop duration / step time) and the padding
+granule.
 
     python -m sudo_rm_rf_tpu_torch.bench_streaming [--hop 160] [--context 3200]
                                                    [--streams 1 16]
@@ -37,6 +39,7 @@ def main(argv=None, model_kwargs=None) -> int:
     import torch
 
     from sudo_rm_rf_tpu_torch import models
+    from sudo_rm_rf_tpu_torch.inference import StreamingSeparator
     from sudo_rm_rf_tpu_torch.utils.benchmark import time_call
 
     device = torch.device(args.device)
@@ -47,17 +50,12 @@ def main(argv=None, model_kwargs=None) -> int:
     granule = model.n_least_samples_req
     if args.context % granule:
         raise SystemExit(f"--context must be a multiple of the model granule ({granule})")
-    window = args.context + args.hop
-    la = granule  # StreamingSeparator's default lookahead
 
     for n in args.streams:
-        x = torch.randn((n, 1, window), generator=torch.Generator().manual_seed(2)).to(device)
-
-        @torch.inference_mode()
-        def step():
-            return model(x)[:, :, window - la - args.hop: window - la]
-
-        step_ms = 1e3 * time_call(step, device, n=args.n_hi)
+        sep = StreamingSeparator(model, hop_samples=args.hop, context_samples=args.context,
+                                 num_streams=n)
+        hops = torch.randn((n, args.hop), generator=torch.Generator().manual_seed(2)).numpy()
+        step_ms = 1e3 * time_call(lambda: sep.push(hops), device, n=args.n_hi)
         hop_ms = 1e3 * args.hop / SR
         print(json.dumps({
             "streams": n,

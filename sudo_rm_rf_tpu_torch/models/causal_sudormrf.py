@@ -15,7 +15,11 @@
 
 The JAX package constant-folds the mask multiply under jit; here it is one
 elementwise launch per masked conv and forward (the encoder and the
-``depth`` depthwise convs of each block), serving included.
+``depth`` depthwise convs of each block), serving included, counted by
+``CausalConv1d.mask_applies``. The forward carries the serving forward's
+spans (``utils/tracing.py``): ``forward``, ``forward.encode``, one
+``forward.block`` a block and ``forward.decode``, one a stage of
+``CausalSuDORMRF.stages``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from sudo_rm_rf_tpu_torch.models.layers import (
     kaiming_uniform_conv,
     xavier_uniform_conv,
 )
+from sudo_rm_rf_tpu_torch.utils import tracing
 
 
 def causal_mask(kernel_size: int) -> torch.Tensor:
@@ -47,6 +52,9 @@ def causal_mask(kernel_size: int) -> torch.Tensor:
 class CausalConv1d(Conv1d):
     """Conv1d whose weight is causally masked in every forward."""
 
+    # weight-mask multiplies of every instance, one a masked conv's forward
+    mask_applies = 0
+
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, groups: int = 1,
                  use_bias: bool = True, weight_init: Callable = kaiming_uniform_conv, *,
@@ -59,7 +67,10 @@ class CausalConv1d(Conv1d):
         self.register_buffer("mask", causal_mask(kernel_size).to(device), persistent=False)
 
     def forward(self, x):
-        w = self.weight * self.mask if self.masked else self.weight
+        w = self.weight
+        if self.masked:
+            CausalConv1d.mask_applies += 1
+            w = w * self.mask
         return ops.conv1d(x, w, self.bias, stride=self.stride, padding=self.padding,
                           groups=self.groups)
 
@@ -154,15 +165,34 @@ class CausalSuDORMRF(nn.Module):
     def n_least_samples_req(self) -> int:
         return (self.enc_kernel_size // 2) * 2**self.upsampling_depth
 
-    def forward(self, input_wav):
-        if input_wav.ndim == 2:
-            input_wav = input_wav[:, None, :]
-        in_len = input_wav.shape[-1]
-        x = ops.pad_to_multiple(input_wav, self.n_least_samples_req)
-        x = self.sm(self.bottleneck(self.encoder(x)))
+    def stages(self):
+        """The forward of a (B, C, T) input as (span name, callable) pairs in
+        order: the encoder (pad, masked encoder, bottleneck), each block,
+        and the mask head with the decoder. Composed and cropped back to T,
+        they are the forward; the streaming separator captures each one as
+        a CUDA graph."""
+        yield "forward.encode", self._encode
+        for block in self.sm:
+            yield "forward.block", block
+        yield "forward.decode", self._decode
+
+    def _encode(self, x):
+        x = ops.pad_to_multiple(x, self.n_least_samples_req)
+        return self.bottleneck(self.encoder(x))
+
+    def _decode(self, x):
         x = self.mask_net(x)
         b = x.shape[0]
         n_out = self.num_sources * self.in_audio_channels
         x = self.mask_nl_class(x.reshape(b, n_out, self.enc_num_basis, -1))
-        est = self.decoder(x.reshape(b, n_out * self.enc_num_basis, -1))
-        return ops.unpad_to_length(est, in_len)
+        return self.decoder(x.reshape(b, n_out * self.enc_num_basis, -1))
+
+    def forward(self, input_wav):
+        with tracing.span("forward", rows=input_wav.shape[0]):
+            if input_wav.ndim == 2:
+                input_wav = input_wav[:, None, :]
+            x = input_wav
+            for name, stage in self.stages():
+                with tracing.span(name):
+                    x = stage(x)
+            return ops.unpad_to_length(x, input_wav.shape[-1])
